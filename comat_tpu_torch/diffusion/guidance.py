@@ -1,0 +1,53 @@
+"""Classifier-free guidance as an eps-model wrapper.
+
+Port of comat_tpu/diffusion/guidance.py (`rescale_noise_cfg`,
+`make_cfg_eps_model`, without attention capture). With guidance, the
+UNet runs once on the [uncond; cond] 2B batch, uncond first, and the
+halves are recombined, optionally with guidance rescale (arXiv
+2305.08891 §3.4).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+
+def rescale_noise_cfg(
+    noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,
+    guidance_rescale: float,
+) -> torch.Tensor:
+    dims = tuple(range(1, noise_cfg.dim()))
+    std_text = noise_pred_text.float().std(dim=dims, keepdim=True, unbiased=False)
+    std_cfg = noise_cfg.float().std(dim=dims, keepdim=True, unbiased=False)
+    rescaled = noise_cfg * (std_text / std_cfg).to(noise_cfg.dtype)
+    return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
+
+
+def make_cfg_eps_model(
+    unet_apply: Callable,
+    context: torch.Tensor,
+    null_context: Optional[torch.Tensor],
+    guidance_scale: float,
+    guidance_rescale: float = 0.0,
+) -> Callable:
+    """Returns eps_model(latents, t) -> guided eps.
+
+    `unet_apply(latents, t, context)` -> eps. `null_context=None` or
+    `guidance_scale <= 1` turns guidance off."""
+    do_cfg = null_context is not None and guidance_scale > 1.0
+    ctx2 = torch.cat([null_context, context], dim=0) if do_cfg else None
+
+    def eps_model(latents: torch.Tensor, t) -> torch.Tensor:
+        if not do_cfg:
+            return unet_apply(latents, t, context)
+        B = latents.shape[0]
+        eps2 = unet_apply(torch.cat([latents, latents], dim=0), t, ctx2)
+        eps_uncond, eps_text = eps2[:B], eps2[B:]
+        eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+        if guidance_rescale > 0.0:
+            eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
+        return eps
+
+    return eps_model

@@ -1,0 +1,136 @@
+"""CLIP text encoder (the SD1.5 ViT-L/14 text tower) in PyTorch.
+
+Port of comat_tpu/models/clip_text.py for SD1.5: causal attention with a
+-1e30 mask and an fp32 softmax, quick_gelu, final LayerNorm, and the
+pooled output taken at each row's EOS position. Parameter names follow
+transformers' CLIPTextModel (`text_model.embeddings...`,
+`text_model.encoder.layers.{i}...`, `text_model.final_layer_norm`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from comat_tpu_torch.config import CLIPTextConfig
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+class CLIPAttention(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, device=None):
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        D = cfg.hidden_size
+        self.num_heads = cfg.num_heads
+        self.q_proj = nn.Linear(D, D, **kw)
+        self.k_proj = nn.Linear(D, D, **kw)
+        self.v_proj = nn.Linear(D, D, **kw)
+        self.out_proj = nn.Linear(D, D, **kw)
+
+    def forward(self, x: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+        B, S, D = x.shape
+        hd = D // self.num_heads
+
+        def split(a):
+            return a.reshape(B, S, self.num_heads, hd).transpose(1, 2)
+
+        q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / (hd ** 0.5)
+        logits = torch.where(causal, logits, torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.matmul(probs.to(v.dtype), v).to(x.dtype)
+        return self.out_proj(out.transpose(1, 2).reshape(B, S, D))
+
+
+class CLIPMLP(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, device=None):
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.act = quick_gelu if cfg.hidden_act == "quick_gelu" else F.gelu
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class CLIPEncoderLayer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, device=None):
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
+        self.self_attn = CLIPAttention(cfg, device)
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
+        self.mlp = CLIPMLP(cfg, device)
+
+    def forward(self, x: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(self.layer_norm1(x), causal)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class CLIPEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, device=None):
+        super().__init__()
+        self.token_embedding = nn.Embedding(
+            cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype, device=device
+        )
+        # fp32 master table, added in the compute dtype (as in JAX)
+        self.position_embedding = nn.Embedding(
+            cfg.max_length, cfg.hidden_size, dtype=torch.float32, device=device
+        )
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        tok = self.token_embedding(input_ids)
+        pos = self.position_embedding.weight[: input_ids.shape[1]]
+        return tok + pos.to(tok.dtype)
+
+
+class CLIPEncoder(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [CLIPEncoderLayer(cfg, device) for _ in range(cfg.num_layers)]
+        )
+
+
+class CLIPTextTransformer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig, device=None):
+        super().__init__()
+        self.embeddings = CLIPEmbeddings(cfg, device)
+        self.encoder = CLIPEncoder(cfg, device)
+        self.final_layer_norm = nn.LayerNorm(
+            cfg.hidden_size, eps=1e-5, dtype=cfg.dtype, device=device
+        )
+
+
+class CLIPTextEncoder(nn.Module):
+    """Returns (hidden_states (B, S, D), pooled (B, D)): the final
+    LayerNorm'd states, and those at each row's EOS position (default
+    S - 1)."""
+
+    def __init__(self, cfg: CLIPTextConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.text_model = CLIPTextTransformer(cfg, device)
+
+    def forward(
+        self, input_ids: torch.Tensor,
+        eos_positions: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        tm = self.text_model
+        B, S = input_ids.shape
+        x = tm.embeddings(input_ids)
+        causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
+        for layer in tm.encoder.layers:
+            x = layer(x, causal)
+        final = tm.final_layer_norm(x)
+        if eos_positions is None:
+            eos_positions = torch.full((B,), S - 1, device=x.device)
+        pooled = final[torch.arange(B, device=x.device), eos_positions.long()]
+        return final, pooled

@@ -1,0 +1,64 @@
+"""LoRA-augmented linear layer and LoRA folding.
+
+Port of comat_tpu/models/lora.py (`LoRADense`, `fuse_lora_tree`). The
+frozen projection lives under `base` (an nn.Linear); the factors
+`lora_a` (in, r) and `lora_b` (r, out) are fp32 master weights in the
+JAX layout, and the branch runs in the base's compute dtype:
+y = base(x) + (x A) B.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+
+class LoRALinear(nn.Module):
+    """nn.Linear under `base` plus an optional rank-`lora_rank` branch.
+    `lora_rank == 0` makes it a plain linear layer with no factors."""
+
+    def __init__(
+        self, in_features: int, out_features: int, bias: bool = True,
+        lora_rank: int = 0, dtype: torch.dtype = torch.float32,
+        device=None,
+    ):
+        super().__init__()
+        self.base = nn.Linear(
+            in_features, out_features, bias=bias, dtype=dtype, device=device
+        )
+        self.lora_rank = lora_rank
+        if lora_rank > 0:
+            self.lora_a = nn.Parameter(torch.empty(
+                in_features, lora_rank, dtype=torch.float32, device=device
+            ))
+            self.lora_b = nn.Parameter(torch.empty(
+                lora_rank, out_features, dtype=torch.float32, device=device
+            ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.base(x)
+        if self.lora_rank > 0:
+            dt = self.base.weight.dtype
+            delta = (x.to(dt) @ self.lora_a.to(dt)) @ self.lora_b.to(dt)
+            y = y + delta.to(y.dtype)
+        return y
+
+
+def fuse_lora(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fold every LoRA branch into its base weight: W_eff = W + (A B)^T,
+    summed in fp32 and cast back to W's dtype. The result has no
+    `lora_a`/`lora_b` entries and loads into a `lora_rank=0` twin of the
+    same module."""
+    out = {}
+    for name, value in state_dict.items():
+        if name.endswith(".lora_a") or name.endswith(".lora_b"):
+            continue
+        prefix = name[: -len(".base.weight")] if name.endswith(".base.weight") else None
+        if prefix is not None and prefix + ".lora_a" in state_dict:
+            a = state_dict[prefix + ".lora_a"].float()
+            b = state_dict[prefix + ".lora_b"].float()
+            value = (value.float() + (a @ b).T).to(value.dtype)
+        out[name] = value
+    return out

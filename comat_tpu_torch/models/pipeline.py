@@ -1,0 +1,220 @@
+"""Diffusion pipeline bundle: CLIP text encoder + UNet + VAE decoder +
+sampler, for text-to-image generation.
+
+Port of comat_tpu/models/pipeline.py (`PipelineConfig`,
+`make_pipeline_config`, `DiffusionPipeline.encode_prompt / unet_apply /
+decode_image / fused_params / generate`) for SD1.5 and its tiny test
+geometry. The pipeline owns its modules and their weights on one device:
+CUDA unless the caller asks for the CPU. SDXL, DPM++ and the training
+passes (`forward` / `presample`) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from comat_tpu_torch.config import CLIPTextConfig, UNetConfig, VAEConfig
+from comat_tpu_torch.diffusion.guidance import make_cfg_eps_model
+from comat_tpu_torch.diffusion.sampler import prepare_latents, sample_inference
+from comat_tpu_torch.diffusion.schedulers import (
+    DiffusionSchedule,
+    make_sampler_coeffs,
+    make_schedule,
+)
+from comat_tpu_torch.models.clip_text import CLIPTextEncoder
+from comat_tpu_torch.models.lora import fuse_lora
+from comat_tpu_torch.models.unet import UNet2DConditionModel
+from comat_tpu_torch.models.vae import VAEDecoder
+from comat_tpu_torch.weights import init_weights_
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    unet: UNetConfig
+    text: CLIPTextConfig
+    vae: VAEConfig
+    lora_rank: int = 32
+    resolution: int = 512
+
+    @property
+    def latent_size(self) -> int:
+        return self.resolution // 8
+
+
+def make_pipeline_config(
+    name: str, lora_rank: int = 32, resolution: int = 512, tiny: bool = False,
+) -> PipelineConfig:
+    """`sd_1_5` (and its `_attrcon` variant name) at full or tiny width."""
+    if not name.startswith("sd_1_5"):
+        raise ValueError(f"unknown or not yet ported pipeline {name!r}")
+    if tiny:
+        return PipelineConfig(
+            unet=UNetConfig.tiny(), text=CLIPTextConfig.tiny(),
+            vae=VAEConfig.tiny(), lora_rank=lora_rank, resolution=resolution,
+        )
+    return PipelineConfig(
+        unet=UNetConfig.sd15(), text=CLIPTextConfig.sd15(),
+        vae=VAEConfig.sd15(), lora_rank=lora_rank, resolution=resolution,
+    )
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless `device` says
+    otherwise. Asking for CUDA without a card raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+class EncodedPrompt(NamedTuple):
+    context: torch.Tensor            # (B, L, D)
+    pooled: Optional[torch.Tensor]   # SDXL only; None for SD1.5
+
+
+def _build(module_fn, device: torch.device):
+    """Build a module without initialising it, then allocate it on
+    `device`; every parameter is written afterwards."""
+    with torch.device("meta"):
+        module = module_fn()
+    return module.to_empty(device=device).eval().requires_grad_(False)
+
+
+class DiffusionPipeline:
+    """Modules and weights on one device.
+
+    `params` is {"unet", "text", "vae"} state dicts (as `state_dicts()`
+    returns or `weights.from_jax_params` makes); without it the weights
+    are drawn from `seed` (`weights.init_weights_`)."""
+
+    def __init__(
+        self, cfg: PipelineConfig, device=None,
+        params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+        seed: int = 0,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.unet = _build(
+            lambda: UNet2DConditionModel(cfg.unet, lora_rank=cfg.lora_rank),
+            self.device,
+        )
+        # LoRA-free twin for sampling, loaded with fused_params()
+        self.unet_inf = (
+            _build(lambda: UNet2DConditionModel(cfg.unet, lora_rank=0),
+                   self.device)
+            if cfg.lora_rank > 0 else self.unet
+        )
+        self.text = _build(lambda: CLIPTextEncoder(cfg.text), self.device)
+        self.vae = _build(lambda: VAEDecoder(cfg.vae), self.device)
+        self.schedule: DiffusionSchedule = make_schedule()
+        if params is None:
+            g = torch.Generator(device=self.device).manual_seed(seed)
+            for module in (self.unet, self.text, self.vae):
+                init_weights_(module, g)
+        else:
+            self.load_params(params)
+
+    def load_params(self, params: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        self.unet.load_state_dict(params["unet"])
+        self.text.load_state_dict(params["text"])
+        self.vae.load_state_dict(params["vae"])
+
+    def state_dicts(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {
+            "unet": self.unet.state_dict(),
+            "text": self.text.state_dict(),
+            "vae": self.vae.state_dict(),
+        }
+
+    def _ids(self, ids) -> torch.Tensor:
+        if not isinstance(ids, torch.Tensor):
+            ids = torch.from_numpy(np.asarray(ids))
+        return ids.to(self.device).long()
+
+    # ---- text ----
+    @torch.no_grad()
+    def encode_prompt(self, input_ids, eos_positions=None) -> EncodedPrompt:
+        """SD1.5: the final-layer hidden states."""
+        eos = None if eos_positions is None else self._ids(eos_positions)
+        hidden, _ = self.text(self._ids(input_ids), eos)
+        return EncodedPrompt(hidden, None)
+
+    # ---- unet / vae ----
+    def unet_apply(self, latents, t, context, fused: bool = False):
+        """eps for latents (B, h, w, 4). `fused=True` runs the LoRA-free
+        twin, which must hold `fused_params()["unet"]`."""
+        unet = self.unet_inf if fused else self.unet
+        return unet(latents, t, context)
+
+    @torch.no_grad()
+    def decode_image(self, latents: torch.Tensor) -> torch.Tensor:
+        """latents (B, h, w, 4) -> image (B, 8h, 8w, 3) as
+        decode / 2 + 0.5, unclamped."""
+        img = self.vae(latents / self.cfg.vae.scaling_factor)
+        return img / 2.0 + 0.5
+
+    def fused_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The weights with the UNet's LoRA folded into its base weights
+        (for `unet_apply(..., fused=True)`)."""
+        out = self.state_dicts()
+        if self.cfg.lora_rank > 0:
+            out["unet"] = fuse_lora(out["unet"])
+        return out
+
+    # ---- inference ----
+    @torch.no_grad()
+    def generate(
+        self,
+        input_ids,
+        null_ids,
+        *,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.0,
+        eos_positions=None,
+        kind: str = "ddpm",
+        output_type: str = "image",
+        latents0: Optional[torch.Tensor] = None,
+        step_noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Text-to-image sampling without gradients.
+
+        Randomness: `latents0` (B, h, w, 4) and `step_noise`
+        (S, B, h, w, 4) when given, else draws from `generator` (latents
+        first, then one draw per step). Returns images (B, H, W, 3)
+        clipped to [0, 1], or the final latents for
+        `output_type="latent"`."""
+        if kind not in ("ddpm", "ddim"):
+            raise ValueError(f"scheduler {kind!r} is not ported (ddpm, ddim)")
+        cfg = self.cfg
+        enc = self.encode_prompt(input_ids, eos_positions)
+        nenc = self.encode_prompt(null_ids, None)
+        B = enc.context.shape[0]
+        if cfg.lora_rank > 0:
+            self.unet_inf.load_state_dict(self.fused_params()["unet"])
+        eps_model = make_cfg_eps_model(
+            lambda lat, t, ctx: self.unet_apply(lat, t, ctx, fused=True),
+            enc.context,
+            nenc.context if guidance_scale > 1.0 else None,
+            guidance_scale,
+            guidance_rescale,
+        )
+        if latents0 is None:
+            latents0 = prepare_latents(
+                generator, B, cfg.resolution, cfg.resolution, self.device
+            )
+        coeffs = make_sampler_coeffs(self.schedule, num_inference_steps, kind=kind)
+        latents, _, _ = sample_inference(
+            eps_model, coeffs, latents0.to(self.device), generator,
+            step_noise=step_noise,
+        )
+        if output_type == "latent":
+            return latents
+        return self.decode_image(latents).clamp(0.0, 1.0)

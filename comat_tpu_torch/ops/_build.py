@@ -1,0 +1,130 @@
+"""Build the CUDA sources under `csrc/` and bind them with ctypes.
+
+Each source is compiled on first use by `nvcc` for `sm_90a` into a shared
+library with a plain C interface, under `build/kernels/` at the repository
+root (listed in .gitignore). The file name carries a hash of the source,
+so an edited kernel is rebuilt and a stale library is never loaded.
+`build(names)` starts one `nvcc` per source at once and waits for all.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Iterable, List, Tuple
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def library_path(name: str) -> str:
+    """Path of the library built from `csrc/<name>.cu` as it stands now."""
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named source that has no current library, all at
+    once. Returns {name: library path}. The compiler's report (registers,
+    shared memory, spills) is kept beside each library as `<lib>.log`."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    running: List[Tuple[str, str, subprocess.Popen]] = []
+    try:
+        for name, path in paths.items():
+            if os.path.exists(path):
+                continue
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC_DIR, name + ".cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )
+            running.append((name, tmp, proc))
+        failed = []
+        for name, tmp, proc in running:
+            out, _ = proc.communicate()
+            with open(paths[name] + ".log", "w") as f:
+                f.write(out)
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, paths[name])
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    finally:
+        for _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
+
+
+class CudaKernel:
+    """One C entry point of one source, loaded at its first launch.
+
+    `launches` counts the launches that this process made through
+    `launch`, and only those; `launches_by_shape` splits the same count
+    by the shape key each launch names."""
+
+    def __init__(self, source: str, symbol: str, argtypes: List):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self.launches_by_shape: collections.Counter = collections.Counter()
+        self._fn = None
+
+    def _function(self):
+        if self._fn is None:
+            path = build([self.source])[self.source]
+            fn = getattr(ctypes.CDLL(path), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by_shape.clear()
+
+    def launch(self, *args, shape: Tuple = ()) -> None:
+        """Call the entry point on PyTorch's current stream; raise if the
+        launch was refused."""
+        import torch
+
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._function()(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol} launch failed with cudaError {err}"
+            )
+        self.launches += 1
+        self.launches_by_shape[shape] += 1

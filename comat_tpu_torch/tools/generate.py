@@ -1,0 +1,115 @@
+"""Text-to-image generation CLI for the PyTorch port.
+
+Port of comat_tpu/tools/generate.py: prompts -> PNG images with the DDPM
+or DDIM sampler, on CUDA unless `--device cpu`. Weights are drawn from
+`--seed` (loading a diffusers snapshot and training checkpoints is not
+ported yet). Example:
+
+    python -m comat_tpu_torch.tools.generate --tiny --device cpu \\
+        --prompt "a red cube"
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import struct
+import time
+import zlib
+from typing import Dict, Tuple
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="comat_tpu_torch text-to-image")
+    p.add_argument("--model", default="sd_1_5")
+    p.add_argument("--prompt", nargs="+", required=True)
+    p.add_argument("--out-dir", default="generated")
+    p.add_argument("--num-inference-steps", type=int, default=50)
+    p.add_argument("--guidance-scale", type=float, default=7.5)
+    p.add_argument("--scheduler", default="ddpm", choices=["ddpm", "ddim"])
+    p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tokenizer-dir", default=None)
+    p.add_argument("--tiny", action="store_true")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def write_png(path: str, image) -> None:
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG."""
+    h, w, _ = image.shape
+    raw = b"".join(b"\x00" + image[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
+    """Generate, write `<out-dir>/NNN.png`, and return (images (B, H, W, 3)
+    in [0, 1], {"sample_s", "decode_s"} wall seconds)."""
+    args = parse_args(argv)
+    import numpy as np
+    import torch
+
+    from comat_tpu_torch.models.pipeline import (
+        DiffusionPipeline, make_pipeline_config,
+    )
+    from comat_tpu_torch.text.tokenizer import HashTokenizer, load_clip_tokenizer
+
+    pcfg = make_pipeline_config(
+        args.model, lora_rank=0, resolution=args.resolution, tiny=args.tiny,
+    )
+    pipe = DiffusionPipeline(pcfg, device=args.device, seed=args.seed)
+    tok = (HashTokenizer(pcfg.text.vocab_size) if args.tiny
+           else load_clip_tokenizer(args.tokenizer_dir))
+    prompts = list(args.prompt)
+    enc = tok(prompts, max_length=pcfg.text.max_length)
+    null = tok([""] * len(prompts), max_length=pcfg.text.max_length)
+    generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
+
+    def sync():
+        if pipe.device.type == "cuda":
+            torch.cuda.synchronize(pipe.device)
+
+    sync()
+    t0 = time.perf_counter()
+    latents = pipe.generate(
+        enc["input_ids"], null["input_ids"],
+        num_inference_steps=args.num_inference_steps,
+        guidance_scale=args.guidance_scale,
+        eos_positions=enc["eos_positions"],
+        kind=args.scheduler,
+        output_type="latent",
+        generator=generator,
+    )
+    sync()
+    t1 = time.perf_counter()
+    images = pipe.decode_image(latents).clamp(0.0, 1.0)
+    sync()
+    t2 = time.perf_counter()
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    arr = (images.float().cpu().numpy() * 255).astype(np.uint8)
+    for i, (p, im) in enumerate(zip(prompts, arr)):
+        path = os.path.join(args.out_dir, f"{i:03d}.png")
+        write_png(path, im)
+        print(f"{path}: {p}")
+    timings = {"sample_s": t1 - t0, "decode_s": t2 - t1}
+    print(
+        f"sampled {args.num_inference_steps} steps in {timings['sample_s']:.3f} s "
+        f"({timings['sample_s'] / args.num_inference_steps:.4f} s/step), "
+        f"decoded in {timings['decode_s']:.3f} s on {pipe.device}"
+    )
+    return images, timings
+
+
+if __name__ == "__main__":
+    main()

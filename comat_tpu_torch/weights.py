@@ -1,0 +1,231 @@
+"""Weights for the port: carried across from a JAX parameter tree, or
+made from a seed.
+
+`from_jax_params` is the port's own copy of the name mapping of
+comat_tpu/models/hf_import.py (`_unet_hf_name`, `_clip_hf_name`,
+`_vae_hf_name`), read from it and not imported. Layouts change on the
+way: conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), and
+the GEGLU kernel (dim, 2, 4*dim) -> diffusers' flat (8*dim, dim), values
+first, then gates. LoRA factors `lora_a` (in, r) / `lora_b` (r, out) keep
+the JAX layout.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _dense(x):
+    return np.asarray(x).T
+
+
+def _conv(x):  # HWIO -> OIHW
+    return np.transpose(np.asarray(x), (3, 2, 0, 1))
+
+
+def _same(x):
+    return np.asarray(x)
+
+
+def _geglu(x):
+    x = np.asarray(x)
+    if x.ndim == 3:                      # kernel (dim, 2, 4*dim)
+        return x.reshape(x.shape[0], -1).T
+    return x.reshape(-1)                 # bias (2, 4*dim)
+
+
+Rule = Tuple[str, Callable]
+
+
+def _leaf(kind: str, leaf: str) -> Rule:
+    """Torch leaf name and transform for a JAX leaf of a layer `kind`."""
+    if kind == "norm":
+        return ("weight" if leaf == "scale" else "bias"), _same
+    if leaf in ("lora_a", "lora_b"):
+        return leaf, _same
+    fn = {"dense": _dense, "conv": _conv, "geglu": _geglu}[kind]
+    if leaf == "kernel":
+        return "weight", fn
+    return "bias", (_geglu if kind == "geglu" else _same)
+
+
+def _unet_rule(path: Tuple[str, ...]) -> Optional[Rule]:
+    top, leaf = path[0], path[-1]
+    if top in ("conv_in", "conv_out"):
+        name, fn = _leaf("conv", leaf)
+        return f"{top}.{name}", fn
+    if top == "conv_norm_out":
+        name, fn = _leaf("norm", leaf)
+        return f"conv_norm_out.{name}", fn
+    if top == "time_embedding":
+        name, fn = _leaf("dense", leaf)
+        return f"time_embedding.{path[1]}.{name}", fn
+
+    m = re.fullmatch(r"(down|up)_(\d+)_resnet_(\d+)", top)
+    mid = re.fullmatch(r"mid_resnet_(\d+)", top)
+    if m or mid:
+        base = (f"{m.group(1)}_blocks.{m.group(2)}.resnets.{m.group(3)}"
+                if m else f"mid_block.resnets.{mid.group(1)}")
+        sub = path[1]
+        kind = ("norm" if sub.startswith("norm") else
+                "dense" if sub == "time_emb_proj" else "conv")
+        name, fn = _leaf(kind, leaf)
+        return f"{base}.{sub}.{name}", fn
+
+    m = re.fullmatch(r"(down|up)_(\d+)_attn_(\d+)", top)
+    if m or top == "mid_attn":
+        base = ("mid_block.attentions.0" if top == "mid_attn" else
+                f"{m.group(1)}_blocks.{m.group(2)}.attentions.{m.group(3)}")
+        sub = path[1]
+        if sub == "norm":
+            name, fn = _leaf("norm", leaf)
+            return f"{base}.norm.{name}", fn
+        if sub in ("proj_in", "proj_out"):
+            name, fn = _leaf("dense", leaf)
+            return f"{base}.{sub}.{name}", fn
+        mb = re.fullmatch(r"blocks_(\d+)", sub)
+        if mb:
+            bb = f"{base}.transformer_blocks.{mb.group(1)}"
+            s2 = path[2]
+            if s2.startswith("norm"):
+                name, fn = _leaf("norm", leaf)
+                return f"{bb}.{s2}.{name}", fn
+            if s2 in ("attn1", "attn2"):
+                proj = "to_out.0" if path[3] == "to_out" else path[3]
+                name, fn = _leaf("dense", leaf)
+                return f"{bb}.{s2}.{proj}.{'base.' if path[4] == 'base' else ''}{name}", fn
+            if s2 == "ff":
+                if path[3] == "proj_in":
+                    name, fn = _leaf("geglu", leaf)
+                    return f"{bb}.ff.net.0.proj.{name}", fn
+                name, fn = _leaf("dense", leaf)
+                return f"{bb}.ff.net.2.{name}", fn
+
+    m = re.fullmatch(r"(down|up)_(\d+)_(downsample|upsample)", top)
+    if m:
+        name, fn = _leaf("conv", leaf)
+        return f"{m.group(1)}_blocks.{m.group(2)}.{m.group(3)}rs.0.conv.{name}", fn
+    return None
+
+
+def _clip_rule(path: Tuple[str, ...]) -> Optional[Rule]:
+    pre = "text_model."
+    top, leaf = path[0], path[-1]
+    if top == "token_embedding":
+        return pre + "embeddings.token_embedding.weight", _same
+    if top == "position_embedding":
+        return pre + "embeddings.position_embedding.weight", _same
+    if top == "final_norm":
+        name, fn = _leaf("norm", leaf)
+        return pre + f"final_layer_norm.{name}", fn
+    m = re.fullmatch(r"layers_(\d+)", top)
+    if m:
+        base = pre + f"encoder.layers.{m.group(1)}"
+        sub = path[1]
+        if sub in ("norm1", "norm2"):
+            name, fn = _leaf("norm", leaf)
+            return f"{base}.layer_{sub}.{name}", fn
+        if sub in ("q_proj", "k_proj", "v_proj", "out_proj") and path[2] == "base":
+            name, fn = _leaf("dense", leaf)
+            return f"{base}.self_attn.{sub}.{name}", fn
+        if sub in ("fc1", "fc2"):
+            name, fn = _leaf("dense", leaf)
+            return f"{base}.mlp.{sub}.{name}", fn
+    return None
+
+
+def _vae_rule(path: Tuple[str, ...]) -> Optional[Rule]:
+    if path[0] != "decoder":    # the encoder is not ported
+        return None
+    p1, leaf = path[1], path[-1]
+    pre = "decoder."
+    if p1 == "post_quant_conv":
+        name, fn = _leaf("conv", leaf)
+        return f"post_quant_conv.{name}", fn
+    if p1 in ("conv_in", "conv_out"):
+        name, fn = _leaf("conv", leaf)
+        return f"{pre}{p1}.{name}", fn
+    if p1 == "conv_norm_out":
+        name, fn = _leaf("norm", leaf)
+        return f"{pre}conv_norm_out.{name}", fn
+    m = re.fullmatch(r"mid_resnet_(\d+)", p1)
+    m2 = re.fullmatch(r"up_(\d+)_resnet_(\d+)", p1)
+    if m or m2:
+        base = (f"{pre}mid_block.resnets.{m.group(1)}" if m else
+                f"{pre}up_blocks.{m2.group(1)}.resnets.{m2.group(2)}")
+        sub = path[2]
+        name, fn = _leaf("norm" if sub.startswith("norm") else "conv", leaf)
+        return f"{base}.{sub}.{name}", fn
+    m = re.fullmatch(r"up_(\d+)_upsample", p1)
+    if m:
+        name, fn = _leaf("conv", leaf)
+        return f"{pre}up_blocks.{m.group(1)}.upsamplers.0.conv.{name}", fn
+    if p1 == "mid_attn":
+        base = f"{pre}mid_block.attentions.0"
+        sub = path[2]
+        if sub == "norm":
+            name, fn = _leaf("norm", leaf)
+            return f"{base}.group_norm.{name}", fn
+        name, fn = _leaf("dense", leaf)
+        return f"{base}.{'to_out.0' if sub == 'to_out' else sub}.{name}", fn
+    return None
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), value
+
+
+def _convert(tree: Mapping, rule) -> Dict[str, torch.Tensor]:
+    tree = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(tree):
+        mapped = rule(path)
+        if mapped is None:
+            continue
+        name, fn = mapped
+        out[name] = torch.tensor(np.asarray(fn(leaf)))
+    return out
+
+
+def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{"unet", "text", "vae"} JAX parameter trees, as numpy arrays ->
+    state dicts of the port's modules under the same keys (CPU fp32
+    tensors; the modules cast them to their own dtypes on load). Keys
+    missing from `tree` are missing from the result; leaves the port does
+    not hold (the VAE encoder) are dropped."""
+    rules = {"unet": _unet_rule, "text": _clip_rule, "vae": _vae_rule}
+    return {k: _convert(tree[k], rule) for k, rule in rules.items() if k in tree}
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights, in place: every parameter with two or more
+    dims ~ N(0, 1/fan_in) (fan_in = the product of all dims but the
+    first; `lora_a` ~ N(0, 1/rank^2) and `lora_b` = 0 as in JAX), norm
+    scales 1 and biases 0. Parameters are drawn in name order from
+    `generator`, in fp32 on the generator's device."""
+    for name, p in sorted(module.named_parameters()):
+        if name.endswith("lora_b"):
+            p.zero_()
+        elif name.endswith("lora_a"):
+            draw = torch.randn(p.shape, generator=generator,
+                               device=generator.device)
+            p.copy_(draw / p.shape[1])
+        elif p.dim() >= 2:
+            fan_in = p[0].numel()
+            draw = torch.randn(p.shape, generator=generator,
+                               device=generator.device)
+            p.copy_(draw * fan_in ** -0.5)
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            p.fill_(1.0)

@@ -1,0 +1,72 @@
+"""The port stands alone: importing every comat_tpu_torch module loads no
+jax and no comat_tpu module, and an entry point asked for no device on a
+machine without CUDA raises instead of running on the CPU."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "comat_tpu_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    return subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(code)], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = list(_modules())
+    assert "comat_tpu_torch.ops.flash_attention" in mods
+    res = _run(f"""
+        import importlib, sys
+        for m in {mods!r}:
+            importlib.import_module(m)
+        bad = [m for m in sys.modules
+               if m == "jax" or m.startswith("jax.")
+               or m == "comat_tpu" or m.startswith("comat_tpu.")]
+        print("BAD", bad)
+    """)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|comat_tpu)(\.|\s|$)", re.M)
+    for path in list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+        assert not pattern.search(path.read_text()), path
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu():
+    res = _run("""
+        import torch
+        assert not torch.cuda.is_available()
+        from comat_tpu_torch.models.pipeline import (
+            DiffusionPipeline, make_pipeline_config)
+        from comat_tpu_torch.tools.generate import main
+        cfg = make_pipeline_config("sd_1_5", lora_rank=0, resolution=64, tiny=True)
+        for call in (lambda: DiffusionPipeline(cfg),
+                     lambda: main(["--tiny", "--prompt", "a cat"])):
+            try:
+                call()
+            except RuntimeError as e:
+                print("RAISED", e)
+            else:
+                print("RAN")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.count("RAISED") == 2, res.stdout

@@ -5,20 +5,38 @@
 
 Phases; any failure ends the run with a nonzero exit and no result line:
 1. build: print the card's name and power limit, build every CUDA kernel
-   of the generation path (one nvcc per source, all at once);
+   (one nvcc per source, all four at once);
 2. kernels: each kernel against its plain PyTorch version at the shapes
-   the main path gives it, in fp32 (TF32 off) and bf16, with its time,
-   the plain version's, one PyTorch library call's, and its bound;
-3. parity: SD1.5 at full width, fp32, 256^2, 1 prompt, 2 DDPM steps, the
-   same seeded weights and injected noise on the card and on this
-   machine's CPU; images within 1e-3;
-4. main path: `comat_tpu_torch.tools.generate.main` at SD1.5 full width,
-   512^2, bf16, 2 prompts, 50 DDPM steps, CFG 7.5, seeded weights, the
-   hash tokenizer at vocab 49408; finite (2, 512, 512, 3) images and the
-   expected kernel launch counts.
+   the two main paths give it, in fp32 (TF32 off) and bf16, with its time,
+   the plain version's, one PyTorch library call's, and its bound: the
+   flash-attention forward, its dq and dk/dv backward kernels, the 3x3
+   conv forward, its dx (the forward kernel through the autograd Function,
+   against the plain vjp) and its dw (also at the shapes phase 4 gives
+   it, where the train step runs it);
+3. generation parity: SD1.5 at full width, fp32, 256^2, 1 prompt, 2 DDPM
+   steps, the same seeded weights and injected noise on the card and on
+   this machine's CPU; images within 1e-3;
+4. train parity: the CoMat train step's loss and gradients, SD1.5 and
+   BLIP-large at full width, fp32, 256^2, 1 prompt, total_step 4, K 2,
+   LoRA 128 with nonzero lora_b, the VAE trained too (so dw runs), the same
+   weights and draws on the card and the CPU; loss within 1e-3, every LoRA
+   and VAE gradient leaf within 1e-3 relative (a leaf whose CPU gradient
+   is below 1e-6 of the largest, zero in exact arithmetic, within 1e-5 of
+   the largest gradient instead);
+5. generation main path: `comat_tpu_torch.tools.generate.main` at SD1.5
+   full width, 512^2, bf16, 2 prompts, 50 DDPM steps, CFG 7.5, seeded
+   weights, the hash tokenizer at vocab 49408; finite (2, 512, 512, 3)
+   images and the expected kernel launch counts;
+6. train main path: `make_train_step` on the published recipe
+   (scripts/sd15.sh): SD1.5 and BLIP-large at full width, bf16 towers and
+   fp32 LoRA 128, 512^2, 4 prompts (CFG batch 8), total_step 50, K 5, lr
+   5e-5, clip 0.1, 3 steps; finite loss and gradient norm, LoRA leaves
+   changed, the expected launch counts, seconds per step and its split.
 Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
-device line.
-Weights are random (SD1.5's are not in the repository); depth is not cut.
+device line. A kernel entry's `launches` counts the launches at its shape
+in the two main paths and, for dw, which the recipe's frozen VAE never
+runs, in phase 4's card run of the train step with the VAE trained. Weights are random (the real ones are not in the repository);
+depth is not cut.
 """
 
 from __future__ import annotations
@@ -37,19 +55,48 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise
 TOLS = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 2.0 ** -7)}
-FLASH_SHAPES = [  # (B, H, Sq, Skv, d): the main path's, plus a ragged one
-    (4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80), (4, 8, 256, 256, 160),
-    (2, 1, 4096, 4096, 512), (1, 8, 1000, 1100, 80),
-]
-CONV_SHAPES = [  # (B, H, C, Cout): the 512^2 decoder's, batch 2
-    (2, 128, 512, 512), (2, 256, 512, 512), (2, 256, 512, 256),
-    (2, 256, 256, 256), (2, 512, 256, 256), (2, 512, 256, 128),
-    (2, 512, 128, 128),
-]
+# (B, H, Sq, Skv, d): generation (CFG batch 4), train (CFG batch 8, VAE
+# batch 4), and a ragged one
+GEN_FLASH = [(4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80),
+             (4, 8, 256, 256, 160), (2, 1, 4096, 4096, 512)]
+TRAIN_FLASH = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
+               (8, 8, 256, 256, 160), (4, 1, 4096, 4096, 512)]
+RAGGED_FLASH = (1, 8, 1000, 1100, 80)
+# (H, C, Cout): the 21 gated convs of the 512^2 decoder, 7 distinct shapes
+DECODER_CONVS = [(128, 512, 512), (256, 512, 512), (256, 512, 256),
+                 (256, 256, 256), (512, 256, 256), (512, 256, 128),
+                 (512, 128, 128)]
+# (H, C, Cout): the 14 gated convs of the 256^2 decoder, 6 distinct shapes,
+# where phase 4 (batch 1, fp32, the VAE trained) launches dw
+PARITY_DW_CONVS = [(128, 512, 512), (128, 512, 256), (128, 256, 256),
+                   (256, 256, 256), (256, 256, 128), (256, 128, 128)]
+GEN_BATCH, TRAIN_BATCH = 2, 4
+TRAIN_PROMPTS = ["a red cube on top of a blue sphere",
+                 "a photo of two cats and a green umbrella",
+                 "a yellow bus parked next to a brown horse",
+                 "three white cups on a wooden table"]
 MAIN_FLASH_LAUNCHES = 15 * 50 + 1   # 15 self-attentions over >128 keys x 50 + VAE
 MAIN_CONV_LAUNCHES = 21
 PARITY_FLASH_LAUNCHES = 10 * 2 + 1  # 256^2: 5 at S=1024 and 5 at S=256, x 2 + VAE
 PARITY_CONV_LAUNCHES = 14
+TRAIN_STEPS = 3
+# per train step at 512^2: flash forward in pass 1, in the K=5 replay
+# recomputes and in the decode; its backward in the replay and the decode;
+# the 21 gated decoder convs forward and dx; no dw (the VAE is frozen)
+TRAIN_LAUNCHES = {"flash_fwd": 750 + 75 + 1, "dq": 75 + 1, "dkv": 75 + 1,
+                  "conv_fwd": 21, "conv_dx": 21, "dw": 0}
+# the train parity run at 256^2, total_step 4, K 2, VAE trained
+PARITY_TRAIN_LAUNCHES = {"flash_fwd": 10 * 4 + 10 * 2 + 1, "dq": 10 * 2 + 1,
+                         "dkv": 10 * 2 + 1, "conv_fwd": 14, "conv_dx": 14, "dw": 14}
+GRAD_TOL = 1e-3   # relative, per leaf, as tools/step_loss_fixture.py measures it
+LOSS_TOL = 1e-3
+# A leaf whose CPU gradient stays below ZERO_LEAF_REL of the largest
+# gradient of any leaf is zero in exact arithmetic (a key bias adds the
+# same q.b to every logit of a query, which the softmax cancels): both
+# sides hold rounding noise there, so it is held to an absolute bound,
+# ZERO_LEAF_TOL times the largest gradient, instead of a relative one.
+ZERO_LEAF_REL = 1e-6
+ZERO_LEAF_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -82,6 +129,17 @@ def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
     return start.elapsed_time(end) / reps
 
 
+def conv_ops(B: int, Hs: int, C: int, Cout: int, dtype: str) -> float:
+    """Operations of a 3x3 SAME conv (forward, dx or dw: the same count).
+    bf16 counts the direct sum, 2*B*H*W*9*C*Cout, as tensor cores run it.
+    fp32 counts Winograd F(4x4, 3x3), 36 products per 4x4 output tile
+    where the direct sum has 144: cuDNN's fp32 dw runs that algorithm on
+    this card, in true fp32, and beats the direct count's bound
+    (`python -m comat_tpu_torch.tools.probe_conv_library`)."""
+    direct = 2.0 * B * Hs * Hs * 9 * C * Cout
+    return direct / 4 if dtype == "float32" else direct
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -89,6 +147,7 @@ def bound_ms(flops: float, nbytes: float, dtype: str):
 
 def check_close(name, got, want, dtype) -> float:
     atol, rtol = TOLS[dtype]
+    got, want = got.detach(), want.detach()
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     excess = float((diff - rtol * want.float().abs()).max())
@@ -100,88 +159,262 @@ def check_close(name, got, want, dtype) -> float:
     return err
 
 
-def phase_kernels(torch, fa, cv):
+def _entry(name, source, replaces, kernel, key, shape, dtype, err, times, flops,
+           nbytes, library, **extra):
+    ms, plain, lib = times
+    bms, by = bound_ms(flops, nbytes, dtype)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                shape=list(shape), dtype=dtype, kernel=kernel, key=key,
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib, library=library, **extra)
+
+
+def _log_entry(e) -> None:
+    lib_err = (f", its err {e['library_max_abs_err']:.2e}"
+               if "library_max_abs_err" in e else "")
+    log(f"  {e['name']} {e['dtype']} {e['shape']}: err {e['max_abs_err']:.2e}, "
+        f"{e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, {e['library']} "
+        f"{e['library_ms']:.3f}{lib_err}, bound {e['bound_ms']:.3f} by {e['bound_by']})")
+
+
+def _flash_inputs(torch, gen, shape, dt):
+    """q, k, v, dO as (B, S, H, d) head splits of a projection, as on the
+    path; dO scaled so that the gradients are of order one."""
+    B, H, Sq, Skv, d = shape
+    q, k, v, do = (torch.randn(B, S, H, d, generator=gen, device="cuda")
+                   .transpose(1, 2) for S in (Sq, Skv, Skv, Sq))
+    return q.to(dt), k.to(dt), v.to(dt), (do * math.sqrt(Sq)).to(dt)
+
+
+def check_flash_fwd(torch, fa, gen, shape, dtype):
     import torch.nn.functional as F
 
+    dt = getattr(torch, dtype)
+    B, H, Sq, Skv, d = shape
+    q, k, v, _ = _flash_inputs(torch, gen, shape, dt)
+    o, lse = fa.flash_attention(q, k, v, want_lse=True)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = max(check_close("flash o", o, o_ref, dtype),
+              check_close("flash lse", lse, lse_ref, "float32"
+                          if dtype == "float32" else dtype))
+    del o, lse, o_ref, lse_ref
+    times = (time_ms(torch, lambda: fa.flash_attention(q, k, v)),
+             time_ms(torch, lambda: fa.flash_attention_ref(q, k, v)),
+             time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v)))
+    nbytes = (2 * B * H * Sq * d + 2 * B * H * Skv * d) * q.element_size()
+    return [_entry("flash_attention_fwd", "comat_tpu_torch/csrc/flash_fwd.cu",
+                   "comat_tpu/ops/flash_attention.py:86", "comat_flash_fwd",
+                   (B * H, Sq, Skv, d, dtype), [B * H, Sq, Skv, d], dtype, err,
+                   times, 4.0 * B * H * Sq * Skv * d, nbytes,
+                   "F.scaled_dot_product_attention")]
+
+
+def check_flash_bwd(torch, fa, gen, shape, dtype):
+    """dq, dk, dv against `flash_attention_bwd_ref`. The plain and library
+    times are of the whole backward (dq, dk and dv together): the plain
+    version and autograd of F.scaled_dot_product_attention compute the
+    three at once."""
+    import torch.nn.functional as F
+
+    dt = getattr(torch, dtype)
+    B, H, Sq, Skv, d = shape
+    q, k, v, do = _flash_inputs(torch, gen, shape, dt)
+    o, lse = fa.flash_attention(q, k, v, want_lse=True)
+    dvec = (do.float() * o.float()).sum(-1)
+    got = fa.flash_attention_bwd(q, k, v, do, lse, dvec)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse, dvec)
+    torch.cuda.synchronize()
+    errs = [check_close(f"flash {n}", g, w, dtype)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+    del got, want
+    args = (q, k, v, do, lse, dvec)
+    plain = time_ms(torch, lambda: fa.flash_attention_bwd_ref(*args))
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs)
+    lib = time_ms(torch, lambda: torch.autograd.grad(o_lib, (qs, ks, vs), do,
+                                                     retain_graph=True))
+    del o_lib
+    BH, e = B * H, q.element_size()
+    in_bytes = (2 * BH * Sq * d + 2 * BH * Skv * d) * e + 2 * BH * Sq * 4
+    common = dict(shape=[BH, Sq, Skv, d], dtype=dtype,
+                  library="autograd(F.scaled_dot_product_attention)")
+    out = [
+        _entry("flash_attention_bwd_dq", "comat_tpu_torch/csrc/flash_bwd.cu",
+               "comat_tpu/ops/flash_attention.py:136", "comat_flash_bwd_dq",
+               (BH, Sq, Skv, d, dtype), err=errs[0],
+               times=(time_ms(torch, lambda: fa.flash_attention_bwd_dq(*args)),
+                      plain, lib),
+               flops=6.0 * BH * Sq * Skv * d, nbytes=in_bytes + BH * Sq * d * e,
+               **common),
+        _entry("flash_attention_bwd_dkv", "comat_tpu_torch/csrc/flash_bwd.cu",
+               "comat_tpu/ops/flash_attention.py:179", "comat_flash_bwd_dkv",
+               (BH, Sq, Skv, d, dtype), err=max(errs[1:]),
+               times=(time_ms(torch, lambda: fa.flash_attention_bwd_dkv(*args)),
+                      plain, lib),
+               flops=8.0 * BH * Sq * Skv * d, nbytes=in_bytes + 2 * BH * Skv * d * e,
+               **common),
+    ]
+    return out
+
+
+def check_conv_fwd(torch, cv, gen, B, Hs, C, Cout, dtype):
+    import torch.nn.functional as F
+
+    dt = getattr(torch, dtype)
+    x = torch.randn(B, Hs, Hs, C, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(3, 3, C, Cout, generator=gen, device="cuda")
+         / math.sqrt(9 * C)).to(dt)
+    want = cv.conv3x3_ref(x, w)
+    err = check_close("conv3x3", cv.conv3x3_same(x, w), want, dtype)
+    x_nchw = x.permute(0, 3, 1, 2)              # channels_last view
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    library = lambda: F.conv2d(x_nchw, w_oihw, padding=1)  # noqa: E731
+    lib_err = _library_err(library().permute(0, 2, 3, 1), want)
+    del want
+    times = (time_ms(torch, lambda: cv.conv3x3_fwd(x, w)),
+             time_ms(torch, lambda: cv.conv3x3_ref(x, w)),
+             time_ms(torch, library))
+    nbytes = (B * Hs * Hs * (C + Cout) + 9 * C * Cout) * x.element_size()
+    return [_entry("conv3x3_fwd", "comat_tpu_torch/csrc/conv3x3.cu",
+                   "comat_tpu/ops/conv3x3.py:116", "comat_conv3x3_fwd",
+                   (B, Hs, Hs, C, Cout, dtype, "fwd"), [B, Hs, Hs, C, Cout], dtype,
+                   err, times, conv_ops(B, Hs, C, Cout, dtype), nbytes, "F.conv2d",
+                   library_max_abs_err=lib_err,
+                   also_replaces="comat_tpu/ops/conv3x3.py:101")]
+
+
+def _library_err(got, want) -> float:
+    """max |library - plain|: shows the library call's precision (TF32
+    would stand out at ~1e-3 of the values in fp32)."""
+    return float((got.float() - want.float()).abs().max())
+
+
+def _conv_inputs(torch, gen, B, Hs, C, Cout, dt):
+    x = torch.randn(B, Hs, Hs, C, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(3, 3, C, Cout, generator=gen, device="cuda")
+         / math.sqrt(9 * C)).to(dt)
+    dy = torch.randn(B, Hs, Hs, Cout, generator=gen, device="cuda").to(dt)
+    return x, w, dy
+
+
+def check_conv_dx(torch, cv, gen, B, Hs, C, Cout, dtype):
+    """dx through the autograd Function (kernel B on dy with the flipped
+    io-transposed weights) against the plain vjp (autograd of conv3x3_ref
+    in fp32 on the same values)."""
+    dt = getattr(torch, dtype)
+    x, w, dy = _conv_inputs(torch, gen, B, Hs, C, Cout, dt)
+    xg = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(cv.conv3x3_same(xg, w), xg, dy)
+    xp = x.float().requires_grad_()
+    (dx_ref,) = torch.autograd.grad(cv.conv3x3_ref(xp, w.float()), xp, dy.float())
+    err = check_close("conv dx", dx, dx_ref, dtype)
+    wf = cv.flip_io(w)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    library = lambda: torch.nn.grad.conv2d_input(  # noqa: E731
+        (B, C, Hs, Hs), w_oihw, dy.permute(0, 3, 1, 2), padding=1)
+    lib_err = _library_err(library().permute(0, 2, 3, 1), dx_ref)
+    del dx, dx_ref, xg, xp
+    times = (
+        time_ms(torch, lambda: cv.conv3x3_fwd(dy, wf, "dx")),
+        time_ms(torch, lambda: cv.conv3x3_ref(dy, wf)),
+        time_ms(torch, library),
+    )
+    nbytes = (B * Hs * Hs * (C + Cout) + 9 * C * Cout) * x.element_size()
+    return [_entry("conv3x3_dx", "comat_tpu_torch/csrc/conv3x3.cu",
+                   "comat_tpu/ops/conv3x3.py:116", "comat_conv3x3_fwd",
+                   (B, Hs, Hs, Cout, C, dtype, "dx"), [B, Hs, Hs, Cout, C], dtype,
+                   err, times, conv_ops(B, Hs, C, Cout, dtype), nbytes,
+                   "torch.nn.grad.conv2d_input", library_max_abs_err=lib_err,
+                   note="dx of the 3x3 conv: kernel B (conv3x3.cu) on dy with "
+                        "flip_io(w), as _vjp_bwd comat_tpu/ops/conv3x3.py:244-245")]
+
+
+def check_conv_dw(torch, cv, gen, B, Hs, C, Cout, dtype):
+    """dw against `conv3x3_dw_ref`; dy is scaled by 1/sqrt(B*H*W) so that
+    dw is of order one."""
+    dt = getattr(torch, dtype)
+    x, _, dy = _conv_inputs(torch, gen, B, Hs, C, Cout, dt)
+    dys = (dy.float() / math.sqrt(B * Hs * Hs)).to(dt)
+    want = cv.conv3x3_dw_ref(x, dys, dt)
+    err = check_close("conv dw", cv.conv3x3_dw(x, dys, dt), want, dtype)
+    x_nchw, dys_nchw = x.permute(0, 3, 1, 2), dys.permute(0, 3, 1, 2)
+    library = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
+        x_nchw, (Cout, C, 3, 3), dys_nchw, padding=1)
+    lib_err = _library_err(library().permute(2, 3, 1, 0), want)
+    del want
+    times = (
+        time_ms(torch, lambda: cv.conv3x3_dw(x, dys, dt)),
+        time_ms(torch, lambda: cv.conv3x3_dw_ref(x, dys, dt)),
+        time_ms(torch, library),
+    )
+    nbytes = (B * Hs * Hs * (C + Cout) + 9 * C * Cout) * x.element_size()
+    return [_entry("conv3x3_dw", "comat_tpu_torch/csrc/conv3x3_dw.cu",
+                   "comat_tpu/ops/conv3x3.py:128", "comat_conv3x3_dw",
+                   (B, Hs, Hs, C, Cout, dtype), [B, Hs, Hs, C, Cout], dtype, err,
+                   times, conv_ops(B, Hs, C, Cout, dtype), nbytes,
+                   "torch.nn.grad.conv2d_weight", library_max_abs_err=lib_err)]
+
+
+def phase_kernels(torch, fa, cv):
     entries = []
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in ("float32", "bfloat16"):
-        dt = getattr(torch, dtype)
-        for B, H, Sq, Skv, d in FLASH_SHAPES:
-            # the (B, S, H, d) head split of a projection, as on the path
-            q, k, v = (
-                torch.randn(B, S, H, d, generator=gen, device="cuda")
-                .to(dt).transpose(1, 2)
-                for S in (Sq, Skv, Skv)
-            )
-            o, lse = fa.flash_attention(q, k, v, want_lse=True)
-            o_ref, lse_ref = fa.flash_attention_ref(q, k, v)
-            torch.cuda.synchronize()
-            err = max(check_close("flash o", o, o_ref, dtype),
-                      check_close("flash lse", lse, lse_ref, "float32"
-                                  if dtype == "float32" else dtype))
-            ms = time_ms(torch, lambda: fa.flash_attention(q, k, v))
-            plain = time_ms(torch, lambda: fa.flash_attention_ref(q, k, v))
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
-            nbytes = (2 * B * H * Sq * d + 2 * B * H * Skv * d) * q.element_size()
-            bms, by = bound_ms(4.0 * B * H * Sq * Skv * d, nbytes, dtype)
-            entries.append(dict(
-                name="flash_attention_fwd", route="cuda",
-                source="comat_tpu_torch/csrc/flash_fwd.cu",
-                replaces="comat_tpu/ops/flash_attention.py:86",
-                shape=[B * H, Sq, Skv, d], dtype=dtype,
-                key=(B * H, Sq, Skv, d, dtype), max_abs_err=err,
-                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                library_ms=lib, library="F.scaled_dot_product_attention",
-            ))
-            log(f"  flash {dtype} BH={B * H} Sq={Sq} Skv={Skv} d={d}: "
-                f"err {err:.2e}, {ms:.3f} ms (plain {plain:.3f}, sdpa {lib:.3f}, "
-                f"bound {bms:.3f} by {by})")
-            del q, k, v, o, lse, o_ref, lse_ref
-        for B, Hs, C, Cout in CONV_SHAPES:
-            x = torch.randn(B, Hs, Hs, C, generator=gen, device="cuda").to(dt)
-            w = (torch.randn(3, 3, C, Cout, generator=gen, device="cuda")
-                 / math.sqrt(9 * C)).to(dt)
-            y = cv.conv3x3_same(x, w)
-            y_ref = cv.conv3x3_ref(x, w)
-            torch.cuda.synchronize()
-            err = check_close("conv3x3", y, y_ref, dtype)
-            del y_ref
-            x_nchw = x.permute(0, 3, 1, 2)              # channels_last view
-            w_oihw = w.permute(3, 2, 0, 1).contiguous()
-            ms = time_ms(torch, lambda: cv.conv3x3_same(x, w))
-            plain = time_ms(torch, lambda: cv.conv3x3_ref(x, w))
-            lib = time_ms(torch, lambda: F.conv2d(x_nchw, w_oihw, padding=1))
-            nbytes = (B * Hs * Hs * (C + Cout) + 9 * C * Cout) * x.element_size()
-            bms, by = bound_ms(2.0 * B * Hs * Hs * 9 * C * Cout, nbytes, dtype)
-            entries.append(dict(
-                name="conv3x3_fwd", route="cuda",
-                source="comat_tpu_torch/csrc/conv3x3.cu",
-                replaces="comat_tpu/ops/conv3x3.py:116",
-                also_replaces="comat_tpu/ops/conv3x3.py:101",
-                shape=[B, Hs, Hs, C, Cout], dtype=dtype,
-                key=(B, Hs, Hs, C, Cout, dtype), max_abs_err=err,
-                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                library_ms=lib, library="F.conv2d",
-            ))
-            log(f"  conv {dtype} B={B} {Hs}^2 {C}->{Cout}: err {err:.2e}, "
-                f"{ms:.3f} ms (plain {plain:.3f}, conv2d {lib:.3f}, "
-                f"bound {bms:.3f} by {by})")
-            del x, w, y
-    torch.cuda.empty_cache()
+        for shape in GEN_FLASH + TRAIN_FLASH + [RAGGED_FLASH]:
+            entries += check_flash_fwd(torch, fa, gen, shape, dtype)
+            _log_entry(entries[-1])
+            torch.cuda.empty_cache()
+        for shape in TRAIN_FLASH + [RAGGED_FLASH]:
+            entries += check_flash_bwd(torch, fa, gen, shape, dtype)
+            _log_entry(entries[-2])
+            _log_entry(entries[-1])
+            torch.cuda.empty_cache()
+        for Hs, C, Cout in DECODER_CONVS:
+            entries += check_conv_fwd(torch, cv, gen, GEN_BATCH, Hs, C, Cout, dtype)
+            _log_entry(entries[-1])
+            if dtype == "bfloat16":
+                entries += check_conv_fwd(torch, cv, gen, TRAIN_BATCH, Hs, C, Cout,
+                                          dtype)
+                _log_entry(entries[-1])
+            entries += check_conv_dx(torch, cv, gen, TRAIN_BATCH, Hs, C, Cout, dtype)
+            _log_entry(entries[-1])
+            entries += check_conv_dw(torch, cv, gen, TRAIN_BATCH, Hs, C, Cout, dtype)
+            _log_entry(entries[-1])
+            torch.cuda.empty_cache()
+    # dw where the train step runs it: the VAE trained, in phase 4's run
+    for Hs, C, Cout in PARITY_DW_CONVS:
+        entries += check_conv_dw(torch, cv, gen, 1, Hs, C, Cout, "float32")
+        _log_entry(entries[-1])
     return entries
 
 
-def fp32_config(name: str, resolution: int):
+def fp32_config(name: str, resolution: int, lora_rank: int = 0):
     import torch
 
     from comat_tpu_torch.models.pipeline import make_pipeline_config
 
-    cfg = make_pipeline_config(name, lora_rank=0, resolution=resolution)
+    cfg = make_pipeline_config(name, lora_rank=lora_rank, resolution=resolution)
     f32 = lambda c: dataclasses.replace(c, dtype=torch.float32)  # noqa: E731
     return dataclasses.replace(
         cfg, unet=f32(cfg.unet), text=f32(cfg.text), vae=f32(cfg.vae)
     )
+
+
+def reset(kernels) -> None:
+    for kern in kernels:
+        kern.reset_counts()
+
+
+def counts_by_role(fa, cv):
+    """Launches since the last reset, by kernel and role."""
+    conv = cv.KERNEL.launches_by_shape
+    return {
+        "flash_fwd": fa.KERNEL.launches, "dq": fa.DQ_KERNEL.launches,
+        "dkv": fa.DKV_KERNEL.launches,
+        "conv_fwd": sum(n for k, n in conv.items() if k[-1] == "fwd"),
+        "conv_dx": sum(n for k, n in conv.items() if k[-1] == "dx"),
+        "dw": cv.DW_KERNEL.launches,
+    }
 
 
 def phase_parity(torch, kernels):
@@ -205,13 +438,12 @@ def phase_parity(torch, kernels):
     img_cpu = cpu.generate(enc["input_ids"], null["input_ids"], **kw)
     t_cpu = time.perf_counter() - t0
     del cpu
-    for kern in kernels:
-        kern.reset_counts()
+    reset(kernels)
     t0 = time.perf_counter()
     img_gpu = gpu.generate(enc["input_ids"], null["input_ids"], **kw)
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
-    counts = [kern.launches for kern in kernels]
+    counts = [kern.launches for kern in kernels[:1] + kernels[3:4]]
     diff = float((img_gpu.cpu() - img_cpu).abs().max())
     log(f"  card vs CPU image max |diff| = {diff:.3e} (cpu {t_cpu:.1f} s, "
         f"card {t_gpu:.1f} s); launches flash {counts[0]}, conv {counts[1]}")
@@ -229,6 +461,98 @@ def phase_parity(torch, kernels):
     return diff
 
 
+def _train_batch(prompts, clip_vocab, blip_vocab):
+    from comat_tpu_torch.losses.caption_reward import build_caption_batch
+    from comat_tpu_torch.text.tokenizer import HashTokenizer
+
+    tok = HashTokenizer(clip_vocab)
+    enc, null = tok(prompts), tok([""] * len(prompts))
+    cap = build_caption_batch(HashTokenizer(blip_vocab), prompts)
+    return {"input_ids": enc["input_ids"], "eos_positions": enc["eos_positions"],
+            "null_ids": null["input_ids"], "caption_ids": cap["input_ids"],
+            "caption_mask": cap["attention_mask"], "caption_labels": cap["labels"]}
+
+
+def phase_train_parity(torch, fa, cv, kernels):
+    """One make_loss_fn value and backward on the card and on the CPU."""
+    from comat_tpu_torch.config import BLIPConfig
+    from comat_tpu_torch.models.blip import make_blip
+    from comat_tpu_torch.models.pipeline import DiffusionPipeline
+    from comat_tpu_torch.training import train_step as ts
+
+    cfg = fp32_config("sd_1_5", 256, lora_rank=128)
+    bcfg = dataclasses.replace(BLIPConfig.large(), dtype=torch.float32)
+    tcfg = ts.TrainConfig(total_step=4, K=2, resolution=256)
+    t0 = time.perf_counter()
+    cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
+    g = torch.Generator().manual_seed(SEED + 11)
+    with torch.no_grad():
+        for name, p in cpu.unet.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    gpu = DiffusionPipeline(cfg, device="cuda", params=cpu.state_dicts())
+    blip_cpu = make_blip(bcfg, device="cpu", seed=SEED + 1)
+    blip_gpu = make_blip(bcfg, device="cuda", params=blip_cpu.state_dict())
+    log(f"  weights made in {time.perf_counter() - t0:.1f} s")
+    batch = _train_batch(TRAIN_PROMPTS[:1], cfg.text.vocab_size, bcfg.vocab_size)
+    draws = ts.sample_draws(tcfg, 1, cfg.latent_size,
+                            torch.Generator().manual_seed(SEED + 3))
+    log(f"  draws: start {draws.start}, crop {draws.crop}")
+
+    def run(pipe, blip):
+        trainable = ts.partition_params(pipe, tune_vae=True)
+        dev = pipe.device
+        d = ts.StepDraws(draws.latents0.to(dev), draws.step_noise.to(dev),
+                         draws.start, draws.crop)
+        loss, (metrics, _) = ts.make_loss_fn(pipe, blip, tcfg)(batch, d)
+        loss.backward()
+        return float(loss), {n: p.grad.detach().cpu() for n, p in trainable.items()}
+
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = run(cpu, blip_cpu)
+    t_cpu = time.perf_counter() - t0
+    del cpu, blip_cpu
+    reset(kernels)
+    t0 = time.perf_counter()
+    loss_gpu, grads_gpu = run(gpu, blip_gpu)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    counts = counts_by_role(fa, cv)
+    by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    scale = max(float(g.abs().max()) for g in grads_cpu.values())
+    rels, zero_leaves = {}, {}
+    for name, gc in grads_cpu.items():
+        gg, gc = grads_gpu[name].double(), gc.double()
+        peak = max(float(gg.abs().max()), float(gc.abs().max()))
+        if float(gc.abs().max()) < ZERO_LEAF_REL * scale:
+            zero_leaves[name] = peak / scale
+        else:
+            rels[name] = float((gg - gc).abs().max()) / max(peak, 1e-12)
+    worst_name = max(rels, key=rels.get)
+    worst = rels[worst_name]
+    n_lora = sum("lora_" in n for n in grads_cpu)
+    log(f"  loss card {loss_gpu:.6f}, CPU {loss_cpu:.6f}, |diff| "
+        f"{abs(loss_gpu - loss_cpu):.3e}; {len(grads_cpu)} gradient leaves "
+        f"({n_lora} LoRA, {len(grads_cpu) - n_lora} VAE), worst relative "
+        f"{worst:.3e} at {worst_name} (cpu {t_cpu:.1f} s, card {t_gpu:.1f} s)")
+    lora_worst = max(r for n, r in rels.items() if "lora_" in n)
+    log(f"  worst LoRA leaf {lora_worst:.3e}; zero-gradient leaves, largest "
+        f"|g| over the largest gradient: {zero_leaves}")
+    log(f"  launches {counts}")
+    if not (math.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= LOSS_TOL):
+        raise AssertionError(f"train loss card {loss_gpu} vs CPU {loss_cpu}")
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"gradient {worst_name} differs by {worst:.3e} relative")
+    if not all(r <= ZERO_LEAF_TOL for r in zero_leaves.values()):
+        raise AssertionError(f"zero-gradient leaves are not at noise level: {zero_leaves}")
+    if counts != PARITY_TRAIN_LAUNCHES:
+        raise AssertionError(f"train parity launched {counts}, "
+                             f"expected {PARITY_TRAIN_LAUNCHES}")
+    del gpu, blip_gpu
+    torch.cuda.empty_cache()
+    return by_shape
+
+
 def phase_main(torch, kernels):
     from comat_tpu_torch.tools.generate import main as generate_main
 
@@ -241,14 +565,13 @@ def phase_main(torch, kernels):
         "--prompt", "a red cube on top of a blue sphere",
         "a photo of two cats and a green umbrella",
     ]
-    for kern in kernels:
-        kern.reset_counts()
+    reset(kernels)
     t0 = time.perf_counter()
     images, timings = generate_main(argv)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    counts = [kern.launches for kern in kernels]
-    by_shape = [dict(kern.launches_by_shape) for kern in kernels]
+    by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    counts = [kernels[0].launches, kernels[3].launches]
     log(f"  main path: {total:.1f} s in all, {timings['sample_s'] / 50:.4f} s/step, "
         f"decode {timings['decode_s']:.3f} s; launches flash {counts[0]}, "
         f"conv {counts[1]}")
@@ -259,7 +582,71 @@ def phase_main(torch, kernels):
             f"main path launched {counts}, expected "
             f"{[MAIN_FLASH_LAUNCHES, MAIN_CONV_LAUNCHES]}"
         )
-    return timings, by_shape
+    return by_shape
+
+
+def phase_train_main(torch, fa, cv, kernels):
+    from comat_tpu_torch.config import BLIPConfig
+    from comat_tpu_torch.models.blip import make_blip
+    from comat_tpu_torch.models.pipeline import DiffusionPipeline, make_pipeline_config
+    from comat_tpu_torch.training import train_step as ts
+
+    cfg = make_pipeline_config("sd_1_5", lora_rank=128, resolution=512)
+    bcfg = BLIPConfig.large()
+    tcfg = ts.TrainConfig()                    # scripts/sd15.sh
+    t0 = time.perf_counter()
+    pipe = DiffusionPipeline(cfg, device="cuda", seed=SEED)
+    blip = make_blip(bcfg, device="cuda", seed=SEED + 1)
+    state = ts.init_train_state(pipe, tcfg)
+    step = ts.make_train_step(pipe, blip, tcfg)
+    batch = _train_batch(TRAIN_PROMPTS, cfg.text.vocab_size, bcfg.vocab_size)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    before = {n: p.detach().clone() for n, p in state.trainable.items()}
+    torch.cuda.synchronize()
+    log(f"  weights made in {time.perf_counter() - t0:.1f} s; "
+        f"{len(before)} LoRA leaves, "
+        f"{sum(p.numel() for p in before.values()) / 1e6:.1f} M parameters")
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        m["wall_s"] = time.perf_counter() - t0
+        steps.append(m)
+        log(f"  step {i + 1}: loss {m['step_loss']:.4f}, reward_blip "
+            f"{m['reward_blip']:.4f}, reward_norm {m['reward_norm']:.4e}, "
+            f"grad_norm {m['grad_norm']:.4e}; {m['wall_s']:.3f} s wall, "
+            f"device split: pass 1 {m['s_pass1']:.3f} s, pass 2 {m['s_pass2']:.3f} s, "
+            f"decode {m['s_decode']:.3f} s, reward {m['s_reward']:.3f} s, "
+            f"optimizer {m['s_optimizer']:.3f} s")
+    counts = counts_by_role(fa, cv)
+    by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    changed = sum(not torch.equal(before[n], p.detach())
+                  for n, p in state.trainable.items())
+    late = steps[1:]
+    median = {k: sorted(s[k] for s in late)[len(late) // 2] if len(late) % 2
+              else sum(s[k] for s in late) / len(late)
+              for k in ("wall_s", "s_pass1", "s_pass2", "s_decode", "s_reward",
+                        "s_optimizer")}
+    log(f"  train split (median of steps 2-{TRAIN_STEPS}): pass 1 "
+        f"{median['s_pass1']:.3f} s, pass 2 {median['s_pass2']:.3f} s, decode "
+        f"{median['s_decode']:.3f} s, reward {median['s_reward']:.3f} s, optimizer "
+        f"{median['s_optimizer']:.3f} s")
+    log(f"  train: {median['wall_s']:.3f} s per step (median of steps "
+        f"2-{TRAIN_STEPS}), peak memory {peak:.1f} GiB; {changed} of "
+        f"{len(before)} LoRA leaves changed; launches {counts}")
+    for m in steps:
+        if not (math.isfinite(m["step_loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"non-finite train step: {m}")
+    if changed != len(before):
+        raise AssertionError(f"only {changed} of {len(before)} LoRA leaves changed")
+    want = {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()}
+    if counts != want:
+        raise AssertionError(f"train main path launched {counts}, expected {want}")
+    return by_shape, median
 
 
 def main() -> int:
@@ -280,45 +667,70 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("[1/4] build")
+    log("[1/6] build")
     t0 = time.perf_counter()
-    paths = _build.build(["flash_fwd", "conv3x3"])
-    log(f"  built in {time.perf_counter() - t0:.1f} s")
+    paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
+    log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
     for path in paths.values():
         if os.path.exists(path + ".log"):
             for line in open(path + ".log"):
                 if "registers" in line or "spill" in line:
                     log("  " + line.strip())
-    kernels = [fa.KERNEL, cv.KERNEL]
+    kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    log("[2/4] kernels against their plain versions")
+    log("[2/6] kernels against their plain versions")
+    t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
+    log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/4] SD1.5 fp32 256^2 card vs CPU")
+    log("[3/6] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    log("[4/4] main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
-    _, by_shape = phase_main(torch, kernels)
+    log("[4/6] train step: SD1.5 + BLIP-large fp32 256^2 card vs CPU")
+    tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
+
+    log("[5/6] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    gen_shapes = phase_main(torch, kernels)
+
+    log("[6/6] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    train_shapes, _ = phase_train_main(torch, fa, cv, kernels)
+
+    # launches: those of the three driven paths, each counted from 0 just
+    # before it: the generation and train main paths, and dw in the train
+    # step with the VAE trained (phase 4's card run)
+    paths = {"generate": gen_shapes, "train": train_shapes,
+             "train_tune_vae": {cv.DW_KERNEL.symbol: tune_vae_shapes[cv.DW_KERNEL.symbol]}}
     for e in entries:
-        counts = by_shape[0] if e["name"] == "flash_attention_fwd" else by_shape[1]
-        e["launches"] = counts.get(tuple(e.pop("key")), 0)
-    for kern, counts in zip(kernels, by_shape):
-        missing = {k: n for k, n in counts.items()
-                   if not any(tuple(e["shape"]) == k[:-1] and e["dtype"] == k[-1]
-                              for e in entries)}
-        if missing:
-            raise AssertionError(f"{kern.symbol}: main-path shapes not measured: {missing}")
-    # each kernel's share of the main path, from its per-shape times above
-    for name in ("flash_attention_fwd", "conv3x3_fwd"):
-        sel = [e for e in entries if e["name"] == name and e["launches"]]
-        total_ms = {key: sum(e["launches"] * e[key] for e in sel)
-                    for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        log(f"  {name} on the main path: launches x ms = {total_ms['ms']:.1f} ms "
-            f"(plain {total_ms['plain_ms']:.1f}, library {total_ms['library_ms']:.1f}, "
-            f"bound {total_ms['bound_ms']:.2f})")
+        key = tuple(e.pop("key"))
+        for path, shapes in paths.items():
+            e[f"launches_{path}"] = shapes.get(e["kernel"], {}).get(key, 0)
+        e["launches"] = sum(e[f"launches_{path}"] for path in paths)
+    measured = {(e["kernel"], tuple(e["shape"]), e["dtype"]) for e in entries}
+    for path in paths.values():
+        for symbol, counts in path.items():
+            # a conv launch key ends in its role ("fwd" or "dx")
+            strip = 2 if symbol == cv.KERNEL.symbol else 1
+            missing = {k: n for k, n in counts.items()
+                       if (symbol, k[:-strip], k[-strip]) not in measured}
+            if missing:
+                raise AssertionError(f"{symbol}: main-path shapes not measured: {missing}")
+    # each kernel's share of the main paths, from its per-shape times above
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "conv3x3_fwd", "conv3x3_dx", "conv3x3_dw"):
+        for path in paths:
+            sel = [e for e in entries if e["name"] == name and e[f"launches_{path}"]]
+            if not sel:
+                continue
+            n = sum(e[f"launches_{path}"] for e in sel)
+            total_ms = {key: sum(e[f"launches_{path}"] * e[key] for e in sel)
+                        for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            log(f"  {name} on the {path} path: {n} launches x ms = "
+                f"{total_ms['ms']:.1f} ms (plain {total_ms['plain_ms']:.1f}, "
+                f"library {total_ms['library_ms']:.1f}, bound {total_ms['bound_ms']:.2f})")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
-    # "kernels": the shapes the main path launched; "checks": the other
-    # comparisons (fp32, ragged keys), with the same keys
+    # "kernels": the shapes the driven paths launched; "checks": the other
+    # comparisons (fp32, ragged keys, dw at the recipe's frozen-VAE
+    # shapes), with the same keys
     print(json.dumps({
         "kernels": [e for e in entries if e["launches"] > 0],
         "checks": [e for e in entries if e["launches"] == 0],

@@ -1,8 +1,9 @@
 """Model geometry for the PyTorch port (SD1.5 and tiny test geometries).
 
-Port of comat_tpu/config.py (`UNetConfig`, `CLIPTextConfig`, `VAEConfig`)
-with torch dtypes. `dtype` is the compute dtype of the frozen weights:
-bf16 for SD1.5, fp32 for the tiny CPU geometries.
+Port of comat_tpu/config.py (`UNetConfig`, `CLIPTextConfig`, `VAEConfig`,
+`BLIPConfig`) with torch dtypes. `dtype` is the compute dtype of the
+frozen weights: bf16 for SD1.5 and BLIP-large, fp32 for the tiny CPU
+geometries.
 """
 
 from __future__ import annotations
@@ -98,5 +99,56 @@ class VAEConfig:
             block_out_channels=(16, 32, 32, 32),
             layers_per_block=1,
             norm_num_groups=8,
+            dtype=torch.float32,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BLIPConfig:
+    """BLIP image captioner, the frozen concept-matching reward model:
+    Salesforce/blip-image-captioning-large, a ViT-L/16 vision encoder at
+    384x384 and a BERT-style text decoder with cross-attention."""
+
+    # vision
+    image_size: int = 384
+    patch_size: int = 16
+    vision_hidden_size: int = 1024
+    vision_layers: int = 24
+    vision_heads: int = 16
+    vision_intermediate_size: int = 4096
+    # text decoder (BertLMHeadModel geometry)
+    vocab_size: int = 30524
+    text_hidden_size: int = 768
+    text_layers: int = 12
+    text_heads: int = 12
+    text_intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    pad_token_id: int = 0
+    bos_token_id: int = 30522  # [DEC]
+    sep_token_id: int = 102
+    # the published captioning checkpoints leave HF's default: the reward
+    # is an unsmoothed cross-entropy
+    label_smoothing: float = 0.0
+    dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def large() -> "BLIPConfig":
+        return BLIPConfig()
+
+    @staticmethod
+    def tiny(vocab_size: int = 1000) -> "BLIPConfig":
+        return BLIPConfig(
+            image_size=64,
+            patch_size=16,
+            vision_hidden_size=32,
+            vision_layers=2,
+            vision_heads=2,
+            vision_intermediate_size=64,
+            vocab_size=vocab_size,
+            text_hidden_size=32,
+            text_layers=2,
+            text_heads=2,
+            text_intermediate_size=64,
+            bos_token_id=1,
             dtype=torch.float32,
         )

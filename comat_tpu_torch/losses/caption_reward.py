@@ -1,0 +1,82 @@
+"""Concept-matching reward: the frozen BLIP captioner's cross-entropy.
+
+Port of comat_tpu/losses/caption_reward.py (`blip_preprocess`,
+`crop_jitter`, `build_caption_batch`, `blip_caption_reward`). Images are
+resized to 384x384 bicubic with antialiasing and CLIP-normalised, the
+caption is "a photography of " + prompt.lower(), the labels mask padding
+and the prompt prefix with -100, and the reward is minus the caption loss.
+Images keep the JAX layout (B, H, W, 3); every step is differentiable with
+respect to the image.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+CAPTION_PREFIX = "a photography of"
+IGNORE_INDEX = -100
+
+
+def blip_preprocess(image01: torch.Tensor, size: int = 384) -> torch.Tensor:
+    """(B, H, W, 3) in [0, 1] -> (B, size, size, 3), bicubic with
+    antialiasing (torchvision Resize(antialias=True), as
+    `jax.image.resize(method="bicubic", antialias=True)`), then
+    CLIP-normalised, in fp32."""
+    x = F.interpolate(
+        image01.float().permute(0, 3, 1, 2), size=(size, size),
+        mode="bicubic", antialias=True, align_corners=False,
+    ).permute(0, 2, 3, 1)
+    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=x.device)
+    return (x - mean) / std
+
+
+def crop_jitter(image: torch.Tensor, offset_x: int, offset_y: int,
+                size: int) -> torch.Tensor:
+    """image[:, ox:ox+size, oy:oy+size, :] (the reference crops NCHW dims
+    2 and 3, which are NHWC dims 1 and 2)."""
+    ox, oy = int(offset_x), int(offset_y)
+    return image[:, ox:ox + size, oy:oy + size, :]
+
+
+def build_caption_batch(
+    tokenizer, prompts, prompt_length: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Tokenize "a photography of " + prompt.lower() and build the labels,
+    with the padding and the prefix masked."""
+    texts = [f"{CAPTION_PREFIX} {p.lower()}" for p in prompts]
+    batch = tokenizer(texts, padding="longest")
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    if prompt_length is None:
+        prefix_ids = tokenizer([CAPTION_PREFIX], padding="longest")["input_ids"]
+        prompt_length = int(prefix_ids.shape[1]) - 1
+    labels = np.where(mask == 1, ids, IGNORE_INDEX)
+    labels[:, :prompt_length] = IGNORE_INDEX
+    return {
+        "input_ids": ids.astype(np.int32),
+        "attention_mask": mask.astype(np.int32),
+        "labels": labels.astype(np.int32),
+    }
+
+
+def blip_caption_reward(
+    blip, image01: torch.Tensor, input_ids, attention_mask, labels,
+) -> torch.Tensor:
+    """reward = -caption_loss, a scalar, differentiable with respect to
+    `image01`; the captioner's weights are frozen."""
+    device = image01.device
+
+    def as_ids(a):
+        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
+                               device=device).long()
+
+    pixel_values = blip_preprocess(image01, blip.cfg.image_size)
+    loss = blip.caption_loss(pixel_values, as_ids(input_ids),
+                             as_ids(attention_mask), as_ids(labels))
+    return -loss

@@ -2,9 +2,10 @@
 
 Port of comat_tpu/models/conv.py (`Conv3x3`). Parameters are
 nn.Conv2d's: `weight` (Cout, C, 3, 3) and `bias` (Cout,). Shapes that
-pass `use_conv_kernel` go to `conv3x3_same` (the CUDA kernel on the card,
-its plain version on the CPU); the rest to F.conv2d. The bias is added
-outside the kernel, as in the JAX module.
+pass `use_conv_kernel` go to `conv3x3_same` (the CUDA kernels on the
+card, forward and, where autograd records, dx and dw; the plain versions
+on the CPU); the rest to F.conv2d. The bias is added outside the kernel,
+as in the JAX module.
 """
 
 from __future__ import annotations

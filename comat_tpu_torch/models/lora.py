@@ -1,6 +1,7 @@
-"""LoRA-augmented linear layer and LoRA folding.
+"""LoRA-augmented linear layer, LoRA folding and the LoRA/frozen split.
 
-Port of comat_tpu/models/lora.py (`LoRADense`, `fuse_lora_tree`). The
+Port of comat_tpu/models/lora.py (`LoRADense`, `fuse_lora_tree`,
+`is_lora_path`, `split_lora_params`, `merge_params`). The
 frozen projection lives under `base` (an nn.Linear); the factors
 `lora_a` (in, r) and `lora_b` (r, out) are fp32 master weights in the
 JAX layout, and the branch runs in the base's compute dtype:
@@ -9,7 +10,7 @@ y = base(x) + (x A) B.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import torch
 from torch import nn
@@ -62,3 +63,31 @@ def fuse_lora(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             value = (value.float() + (a @ b).T).to(value.dtype)
         out[name] = value
     return out
+
+
+def is_lora_path(path: Iterable[str]) -> bool:
+    """True if a parameter path (a dotted name or a tuple of its parts)
+    names a LoRA factor."""
+    parts = path.split(".") if isinstance(path, str) else path
+    return any(str(k).startswith("lora_") for k in parts)
+
+
+def split_lora_params(
+    state_dict: Dict[str, torch.Tensor],
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{"lora": the LoRA factors, "frozen": everything else}, by name."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {"lora": {}, "frozen": {}}
+    for name, value in state_dict.items():
+        out["lora" if is_lora_path(name) else "frozen"][name] = value
+    return out
+
+
+def merge_params(
+    trainable: Dict[str, torch.Tensor], frozen: Dict[str, torch.Tensor],
+) -> Dict[str, torch.Tensor]:
+    """One state dict from a (trainable, frozen) split; the two must not
+    share a name."""
+    both = trainable.keys() & frozen.keys()
+    if both:
+        raise ValueError(f"{len(both)} names on both sides, e.g. {sorted(both)[0]}")
+    return {**frozen, **trainable}

@@ -3,23 +3,31 @@ sampler, for text-to-image generation.
 
 Port of comat_tpu/models/pipeline.py (`PipelineConfig`,
 `make_pipeline_config`, `DiffusionPipeline.encode_prompt / unet_apply /
-decode_image / fused_params / generate`) for SD1.5 and its tiny test
-geometry. The pipeline owns its modules and their weights on one device:
-CUDA unless the caller asks for the CPU. SDXL, DPM++ and the training
-passes (`forward` / `presample`) are not ported yet.
+decode_image / fused_params / forward / presample / generate`) for SD1.5
+and its tiny test geometry. The pipeline owns its modules and their
+weights on one device: CUDA unless the caller asks for the CPU. Every
+module is built frozen (`requires_grad` off); the train step marks the
+trainable tensors (`training.train_step.partition_params`), and
+`forward` differentiates with respect to those of the UNet. SDXL, DPM++
+and attention capture are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from comat_tpu_torch.config import CLIPTextConfig, UNetConfig, VAEConfig
 from comat_tpu_torch.diffusion.guidance import make_cfg_eps_model
-from comat_tpu_torch.diffusion.sampler import prepare_latents, sample_inference
+from comat_tpu_torch.diffusion.sampler import (
+    SampleResult,
+    prepare_latents,
+    sample_comat,
+    sample_inference,
+)
 from comat_tpu_torch.diffusion.schedulers import (
     DiffusionSchedule,
     make_sampler_coeffs,
@@ -138,11 +146,13 @@ class DiffusionPipeline:
         return ids.to(self.device).long()
 
     # ---- text ----
-    @torch.no_grad()
-    def encode_prompt(self, input_ids, eos_positions=None) -> EncodedPrompt:
-        """SD1.5: the final-layer hidden states."""
+    def encode_prompt(self, input_ids, eos_positions=None,
+                      train_text_encoder: bool = False) -> EncodedPrompt:
+        """SD1.5: the final-layer hidden states, with a gradient only for
+        `train_text_encoder`."""
         eos = None if eos_positions is None else self._ids(eos_positions)
-        hidden, _ = self.text(self._ids(input_ids), eos)
+        with torch.set_grad_enabled(train_text_encoder and torch.is_grad_enabled()):
+            hidden, _ = self.text(self._ids(input_ids), eos)
         return EncodedPrompt(hidden, None)
 
     # ---- unet / vae ----
@@ -152,10 +162,10 @@ class DiffusionPipeline:
         unet = self.unet_inf if fused else self.unet
         return unet(latents, t, context)
 
-    @torch.no_grad()
     def decode_image(self, latents: torch.Tensor) -> torch.Tensor:
         """latents (B, h, w, 4) -> image (B, 8h, 8w, 3) as
-        decode / 2 + 0.5, unclamped."""
+        decode / 2 + 0.5, unclamped; differentiable where autograd
+        records."""
         img = self.vae(latents / self.cfg.vae.scaling_factor)
         return img / 2.0 + 0.5
 
@@ -166,6 +176,130 @@ class DiffusionPipeline:
         if self.cfg.lora_rank > 0:
             out["unet"] = fuse_lora(out["unet"])
         return out
+
+    def _pass1_eps_model(self, context, null_context, guidance_scale,
+                         guidance_rescale):
+        """Pass 1's guided eps: the LoRA-free twin holding the fused
+        weights, no gradients."""
+        if self.cfg.lora_rank > 0:
+            self.unet_inf.load_state_dict(self.fused_params()["unet"])
+        return make_cfg_eps_model(
+            lambda lat, t, ctx: self.unet_apply(lat, t, ctx, fused=True),
+            context.detach(),
+            null_context.detach() if guidance_scale > 1.0 else None,
+            guidance_scale,
+            guidance_rescale,
+        )
+
+    # ---- the CoMat forward ----
+    def forward(
+        self,
+        input_ids,
+        null_ids,
+        trained_idx: Sequence[int],
+        *,
+        num_inference_steps: int = 50,
+        K: int = 5,
+        guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.0,
+        eos_positions=None,
+        null_eos_positions=None,
+        train_text_encoder: bool = False,
+        latents0: Optional[torch.Tensor] = None,
+        step_noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        presampled: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        mark: Optional[Callable[[str], None]] = None,
+    ) -> Tuple[torch.Tensor, SampleResult]:
+        """Differentiable online generation. Returns (image, result).
+
+        image (B, H, W, 3) in [0, 1], unclamped, differentiable through the
+        K trained steps and the VAE decode with respect to every UNet
+        tensor that requires grad (the LoRA factors in the default
+        recipe), the VAE's where they require grad, and the text
+        encoder's under `train_text_encoder`. Pass 1 runs the fused
+        LoRA-free twin without gradients; pass 2 replays the K segments
+        with cached-primal UNet calls (`diffusion.sampler.sample_comat`).
+
+        Randomness: `latents0` (B, h, w, 4) and `step_noise`
+        (S, B, h, w, 4), one table for both passes, when given, else
+        drawn from `generator` (latents first, then the table).
+        `presampled=(eps_table, latents_traj)` skips pass 1 (see
+        `presample`; give the same `step_noise`). `mark(name)` is called
+        after pass 1 ("pass1") and after the replay's forward ("pass2")."""
+        cfg = self.cfg
+        enc = self.encode_prompt(input_ids, eos_positions, train_text_encoder)
+        nenc = self.encode_prompt(null_ids, null_eos_positions, train_text_encoder)
+        B = enc.context.shape[0]
+        coeffs = make_sampler_coeffs(self.schedule, num_inference_steps, kind="ddpm")
+        if latents0 is None and presampled is None:
+            latents0 = prepare_latents(generator, B, cfg.resolution,
+                                       cfg.resolution, self.device)
+        if step_noise is None:
+            s = cfg.latent_size
+            step_noise = torch.randn((num_inference_steps, B, s, s, 4),
+                                     generator=generator, device=self.device)
+        step_noise = step_noise.to(self.device, torch.float32)
+        if presampled is None:
+            _, eps_table, traj = sample_inference(
+                self._pass1_eps_model(enc.context, nenc.context,
+                                      guidance_scale, guidance_rescale),
+                coeffs, latents0.to(self.device), step_noise=step_noise,
+            )
+        else:
+            eps_table, traj = presampled
+        if mark is not None:
+            mark("pass1")
+
+        def diff_eps_model(lat, t, context, null_context):
+            return make_cfg_eps_model(
+                lambda l, tt, ctx: self.unet_apply(l, tt, ctx),
+                context, null_context, guidance_scale, guidance_rescale,
+            )(lat, t)
+
+        latents = sample_comat(
+            diff_eps_model, coeffs, eps_table, traj, step_noise, trained_idx,
+            num_inference_steps // K, enc.context,
+            nenc.context if guidance_scale > 1.0 else None,
+            [p for p in self.unet.parameters() if p.requires_grad],
+        )
+        if mark is not None:
+            mark("pass2")
+        return self.decode_image(latents), SampleResult(latents, eps_table, traj)
+
+    @torch.no_grad()
+    def presample(
+        self,
+        input_ids,
+        null_ids,
+        *,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        guidance_rescale: float = 0.0,
+        eos_positions=None,
+        null_eos_positions=None,
+        latents0: Optional[torch.Tensor] = None,
+        step_noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Pass 1 alone, for callers that must see the image before the
+        differentiable pass: returns (image, eps_table, latents_traj); the
+        tables go to `forward(presampled=...)` with the same `step_noise`."""
+        enc = self.encode_prompt(input_ids, eos_positions)
+        nenc = self.encode_prompt(null_ids, null_eos_positions)
+        eps_model = self._pass1_eps_model(
+            enc.context, nenc.context, guidance_scale, guidance_rescale)
+        if latents0 is None:
+            latents0 = prepare_latents(
+                generator, enc.context.shape[0], self.cfg.resolution,
+                self.cfg.resolution, self.device,
+            )
+        x, eps_table, traj = sample_inference(
+            eps_model,
+            make_sampler_coeffs(self.schedule, num_inference_steps, kind="ddpm"),
+            latents0.to(self.device), generator, step_noise=step_noise,
+        )
+        return self.decode_image(x), eps_table, traj
 
     # ---- inference ----
     @torch.no_grad()
@@ -197,15 +331,8 @@ class DiffusionPipeline:
         enc = self.encode_prompt(input_ids, eos_positions)
         nenc = self.encode_prompt(null_ids, None)
         B = enc.context.shape[0]
-        if cfg.lora_rank > 0:
-            self.unet_inf.load_state_dict(self.fused_params()["unet"])
-        eps_model = make_cfg_eps_model(
-            lambda lat, t, ctx: self.unet_apply(lat, t, ctx, fused=True),
-            enc.context,
-            nenc.context if guidance_scale > 1.0 else None,
-            guidance_scale,
-            guidance_rescale,
-        )
+        eps_model = self._pass1_eps_model(
+            enc.context, nenc.context, guidance_scale, guidance_rescale)
         if latents0 is None:
             latents0 = prepare_latents(
                 generator, B, cfg.resolution, cfg.resolution, self.device

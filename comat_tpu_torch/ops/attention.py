@@ -2,16 +2,18 @@
 
 Port of comat_tpu/ops/attention.py (`multi_head_attention`, without
 probability capture). A CUDA tensor attending over more than 128 keys
-goes to the flash-attention kernel; everything else, every CPU tensor
-included, takes the plain path of the JAX `_attention_xla`: fp32 logits
-and softmax, then the probabilities in v's dtype times v.
+goes to the flash-attention kernels (`flash_attention_diff`: the forward
+kernel, and the two backward kernels where autograd records); everything
+else, every CPU tensor included, takes the plain path of the JAX
+`_attention_xla`: fp32 logits and softmax, then the probabilities in v's
+dtype times v.
 """
 
 from __future__ import annotations
 
 import torch
 
-from comat_tpu_torch.ops.flash_attention import flash_attention
+from comat_tpu_torch.ops.flash_attention import flash_attention_diff
 
 # Attention over at most this many keys stays on the plain path (the
 # cross-attention over 77 text tokens, the 8x8 mid block), as in JAX.
@@ -44,7 +46,7 @@ def multi_head_attention(
 
     qh, kh, vh = split(q, Sq), split(k, Skv), split(v, Skv)
     if q.is_cuda and Skv > PLAIN_MAX_KEYS:
-        out = flash_attention(qh, kh, vh)
+        out = flash_attention_diff(qh, kh, vh)
     else:
         out = attention_plain(qh, kh, vh)
     return out.transpose(1, 2).reshape(B, Sq, D)

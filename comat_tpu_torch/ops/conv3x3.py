@@ -1,15 +1,20 @@
-"""3x3 stride-1 SAME convolution (NHWC, no bias): the CUDA kernel
-`csrc/conv3x3.cu` and its plain PyTorch version.
+"""3x3 stride-1 SAME convolution (NHWC, no bias), forward and backward:
+the CUDA kernels `csrc/conv3x3.cu` (forward, and dx) and
+`csrc/conv3x3_dw.cu` (dw), and their plain PyTorch versions.
 
-Port of comat_tpu/ops/conv3x3.py (`conv3x3_same`, forward). The plain
-version `conv3x3_ref` is the nine-tap sum of (B*H*W, C) @ (C, Cout)
-products with fp32 accumulation, as `_tap_matmuls` computes it, and is
-what a CPU tensor gets.
+Port of comat_tpu/ops/conv3x3.py (`conv3x3_same` with its `_vjp_fwd` /
+`_vjp_bwd`). The plain version `conv3x3_ref` is the nine-tap sum of
+(B*H*W, C) @ (C, Cout) products with fp32 accumulation, as `_tap_matmuls`
+computes it; `conv3x3_dw_ref` the nine x_tap^T @ dy sums of
+`_conv_dw_kernel`. They are what a CPU tensor gets. dx is the forward
+kernel on dy with the spatially flipped, io-transposed weights, as
+`_vjp_bwd` computes it; dw runs only when the weight needs a gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -20,18 +25,34 @@ KERNEL = CudaKernel(
     "conv3x3", "comat_conv3x3_fwd",
     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+DW_KERNEL = CudaKernel(
+    "conv3x3_dw", "comat_conv3x3_dw",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong,
+                                                   ctypes.c_void_p],
+)
+
+# dw splits the pixel sum so that about this many blocks fill the card
+# (two per SM of an H100), each summing at least DW_MIN_PIXELS pixels.
+DW_TARGET_BLOCKS = 264
+DW_MIN_PIXELS = 2048
 
 
 def use_conv_kernel(x_shape, w_shape) -> bool:
     """Dispatch gate: the shape part of the JAX `use_pallas_conv` (square,
-    8-aligned, at least 128 pixels a side and 128 channels in and out).
-    x is (B, H, W, C); w is (3, 3, C, Cout)."""
+    8-aligned, at least 128 pixels a side and 128 channels in and out),
+    applied in both directions as that gate is: the kernel takes C % 8 ==
+    0, so both C (forward) and Cout (dx, Cout -> C) must be multiples of
+    8. x is (B, H, W, C); w is (3, 3, C, Cout)."""
     _, H, W, C = x_shape
     kh, kw, _, Cout = w_shape
     return (
         kh == 3 and kw == 3 and H == W and H % 8 == 0 and H >= 128
-        and C >= 128 and Cout >= 128
+        and C >= 128 and Cout >= 128 and C % 8 == 0 and Cout % 8 == 0
     )
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 def conv3x3_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -48,40 +69,132 @@ def conv3x3_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.reshape(B, H, W, Cout).to(x.dtype)
 
 
-def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3x3 SAME conv of NHWC x (B, H, W, C) with w (3, 3, C, Cout).
+def flip_io(w: torch.Tensor) -> torch.Tensor:
+    """The dx weights of `_vjp_bwd`: w rotated 180 degrees in space, in
+    and out channels swapped: (3, 3, C, Cout) -> (3, 3, Cout, C)."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
 
-    A CPU tensor gets the plain version; a CUDA tensor launches the
-    kernel or raises. On CUDA, x and w must be contiguous (a
-    channels_last NCHW tensor permuted to NHWC is), fp32 or bf16, and C a
-    multiple of 8."""
-    if x.device.type == "cpu":
-        return conv3x3_ref(x, w)
+
+def conv3x3_dw_ref(x: torch.Tensor, dy: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """Plain dw: x (B, H, W, C), dy (B, H, W, Cout) -> (3, 3, C, Cout),
+    the nine x_tap^T @ dy sums in fp32, cast to `dtype`."""
+    B, H, W, C = x.shape
+    Cout = dy.shape[-1]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    g = dy.reshape(B * H * W, Cout).float()
+    dw = torch.empty(3, 3, C, Cout, dtype=torch.float32, device=x.device)
+    for di in range(3):
+        for dj in range(3):
+            tap = xp[:, di:di + H, dj:dj + W, :].reshape(B * H * W, C)
+            dw[di, dj] = tap.float().T @ g
+    return dw.to(dtype)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(
-            f"conv3x3_same takes CPU or CUDA tensors on one device, got "
+            f"{name} takes CPU or CUDA tensors on one device, got "
             f"{x.device}, {w.device}"
         )
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise ValueError(
-            f"conv3x3_same takes fp32 or bf16 x and w of one dtype, got "
+            f"{name} takes fp32 or bf16 tensors of one dtype, got "
             f"{x.dtype}, {w.dtype}"
         )
+    if x.shape[-1] % 8 != 0:
+        raise ValueError(f"{name} needs C % 8 == 0, got C={x.shape[-1]}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous NHWC tensors")
+
+
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, role: str = "fwd") -> torch.Tensor:
+    """3x3 SAME conv of NHWC x (B, H, W, C) with w (3, 3, C, Cout),
+    without a gradient (see `conv3x3_same`).
+
+    A CPU tensor gets the plain version; a CUDA tensor launches the
+    kernel or raises. On CUDA, x and w must be contiguous (a
+    channels_last NCHW tensor permuted to NHWC is), fp32 or bf16, and C a
+    multiple of 8. `role` ("fwd", or "dx" from the backward) only labels
+    the launch in `KERNEL.launches_by_shape`."""
+    if x.device.type == "cpu":
+        return conv3x3_ref(x, w)
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[3]):
         raise ValueError(
             f"expected x (B, H, W, C) and w (3, 3, C, Cout), got "
             f"{tuple(x.shape)}, {tuple(w.shape)}"
         )
+    _check(x, w, "conv3x3")
     B, H, W, C = x.shape
     Cout = w.shape[3]
-    if C % 8 != 0:
-        raise ValueError(f"conv3x3_same needs C % 8 == 0, got C={C}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("conv3x3_same needs contiguous NHWC x and HWIO w")
     y = torch.empty(B, H, W, Cout, dtype=x.dtype, device=x.device)
     KERNEL.launch(
         x.data_ptr(), w.data_ptr(), y.data_ptr(),
         int(x.dtype == torch.bfloat16), B, H, W, C, Cout,
-        shape=(B, H, W, C, Cout, str(x.dtype).replace("torch.", "")),
+        shape=(B, H, W, C, Cout, _dtype_name(x.dtype), role),
     )
     return y
+
+
+def dw_splits(B: int, H: int, W: int, C: int, Cout: int):
+    """(splits, pixels per split) of the dw kernel's pixel sum."""
+    M = B * H * W
+    tiles = math.ceil(9 * C / 128) * math.ceil(Cout / 128)
+    splits = max(1, min(math.ceil(DW_TARGET_BLOCKS / tiles), M // DW_MIN_PIXELS))
+    per = math.ceil(M / splits / 8) * 8
+    return math.ceil(M / per), per
+
+
+def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """dw (3, 3, C, Cout) in `dtype` of the 3x3 SAME conv of x (B, H, W,
+    C) for the output gradient dy (B, H, W, Cout). A CPU tensor gets the
+    plain version; a CUDA tensor launches the dw kernel (x, dy contiguous,
+    one of fp32 or bf16, C a multiple of 8) or raises."""
+    if x.device.type == "cpu":
+        return conv3x3_dw_ref(x, dy, dtype)
+    if x.dim() != 4 or dy.shape[:3] != x.shape[:3]:
+        raise ValueError(
+            f"expected x (B, H, W, C) and dy (B, H, W, Cout), got "
+            f"{tuple(x.shape)}, {tuple(dy.shape)}"
+        )
+    _check(x, dy, "conv3x3_dw")
+    if dtype != x.dtype:
+        raise ValueError(f"conv3x3_dw writes dw in x's dtype {x.dtype}, not {dtype}")
+    B, H, W, C = x.shape
+    Cout = dy.shape[3]
+    splits, per = dw_splits(B, H, W, C, Cout)
+    dw = torch.empty(3, 3, C, Cout, dtype=x.dtype, device=x.device)
+    work = torch.empty(splits, 9 * C * Cout, dtype=torch.float32, device=x.device)
+    DW_KERNEL.launch(
+        x.data_ptr(), dy.data_ptr(), dw.data_ptr(), work.data_ptr(),
+        int(x.dtype == torch.bfloat16), B, H, W, C, Cout, splits, per,
+        shape=(B, H, W, C, Cout, _dtype_name(x.dtype)),
+    )
+    return dw
+
+
+class _Conv3x3(torch.autograd.Function):
+    """dx = the forward conv of dy with `flip_io(w)`; dw only where the
+    weight needs a gradient (a frozen VAE skips it, as XLA drops it in
+    JAX, and x is then not kept for the backward)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x if w.requires_grad else None, w)
+        return conv3x3_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(w.dtype).contiguous()
+        dx = conv3x3_fwd(dy, flip_io(w), "dx") if ctx.needs_input_grad[0] else None
+        dw = conv3x3_dw(x, dy, w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`conv3x3_fwd` with a gradient, through the backward above. Where
+    autograd does not record (no_grad, or neither x nor w requires grad)
+    the Function keeps nothing and this is `conv3x3_fwd` itself."""
+    return _Conv3x3.apply(x, w)

@@ -1,11 +1,15 @@
-"""Flash-attention forward: the CUDA kernel `csrc/flash_fwd.cu` and its
-plain PyTorch version.
+"""Flash attention, forward and backward: the CUDA kernels
+`csrc/flash_fwd.cu` (forward) and `csrc/flash_bwd.cu` (dq; dk and dv) and
+their plain PyTorch versions.
 
-Port of comat_tpu/ops/flash_attention.py (`_fwd` / `flash_attention`).
-The kernel never materialises the (Sq, Skv) probabilities; the plain
-version `flash_attention_ref` does, in fp32, and is what a CPU tensor
-gets. Both scale q by 1/sqrt(d) rounded to the input dtype before the
-product, as the JAX `_fwd` does, so bf16 results line up.
+Port of comat_tpu/ops/flash_attention.py (`_fwd` / `flash_attention` and
+`flash_attention_diff` with its `_flash_diff_fwd` / `_flash_diff_bwd`
+VJP). The kernels never materialise the (Sq, Skv) probabilities; the plain
+versions `flash_attention_ref` and `flash_attention_bwd_ref` do, in fp32,
+and are what a CPU tensor gets. All scale q by 1/sqrt(d) rounded to the
+input dtype before the product, as the JAX `_fwd` does, and the backward
+rounds where the JAX kernels round (dS to k's and q's dtype, P to dO's),
+so bf16 results line up.
 """
 
 from __future__ import annotations
@@ -25,12 +29,66 @@ KERNEL = CudaKernel(
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p],
 )
+DQ_KERNEL = CudaKernel(
+    "flash_bwd", "comat_flash_bwd_dq",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
+       ctypes.c_void_p],
+)
+DKV_KERNEL = CudaKernel(
+    "flash_bwd", "comat_flash_bwd_dkv",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p],
+)
 
 
 def _scale(d: int, dtype: torch.dtype) -> float:
     """1/sqrt(d) rounded to `dtype` (JAX multiplies by
     `jnp.asarray(scale, q.dtype)`)."""
     return float(torch.tensor(1.0 / math.sqrt(d), dtype=dtype))
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _bhsd_strides(*tensors):
+    """(batch, seq, head) element strides of (B, H, S, d) tensors."""
+    return [s for t in tensors for s in (t.stride(0), t.stride(2), t.stride(1))]
+
+
+def _empty_bhsd(B, H, S, d, like: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, d) laid out as (B, S, H, d): the head merge is a view."""
+    return torch.empty(B, S, H, d, dtype=like.dtype, device=like.device).transpose(1, 2)
+
+
+def _check(q, k, v) -> None:
+    """What the kernels take: (B, H, S, d) fp32 or bf16 CUDA tensors of one
+    dtype with a contiguous last dim and d <= 512."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(
+            f"flash attention takes CPU or CUDA tensors on one device, got "
+            f"{q.device}, {k.device}, {v.device}"
+        )
+    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+        k.dtype == q.dtype and v.dtype == q.dtype
+    ):
+        raise ValueError(
+            f"flash attention takes fp32 or bf16 q, k, v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"expected (B, H, S, d) q, k, v, got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, H, _, d = q.shape
+    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} exceeds the kernel's {MAX_HEAD_DIM}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash attention needs a contiguous last dim")
 
 
 def flash_attention_ref(
@@ -51,7 +109,8 @@ def flash_attention_ref(
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, want_lse: bool = False,
 ):
-    """softmax(q k^T / sqrt(d)) v over (B, H, S, d) tensors.
+    """softmax(q k^T / sqrt(d)) v over (B, H, S, d) tensors, without a
+    gradient (see `flash_attention_diff`).
 
     q, k, v may be strided views (for instance the (B, S, H, d) head
     split of a projection) as long as the last dim is contiguous. A CPU
@@ -61,45 +120,137 @@ def flash_attention(
     if q.device.type == "cpu":
         o, lse = flash_attention_ref(q, k, v)
         return (o, lse) if want_lse else o
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(
-            f"flash_attention takes CPU or CUDA tensors on one device, got "
-            f"{q.device}, {k.device}, {v.device}"
-        )
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-        k.dtype == q.dtype and v.dtype == q.dtype
-    ):
-        raise ValueError(
-            f"flash_attention takes fp32 or bf16 q, k, v of one dtype, got "
-            f"{q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(
-            f"expected (B, H, S, d) q, k, v, got {tuple(q.shape)}, "
-            f"{tuple(k.shape)}, {tuple(v.shape)}"
-        )
+    _check(q, k, v)
     B, H, Sq, d = q.shape
     Skv = k.shape[2]
-    if k.shape[0] != B or k.shape[1] != H or k.shape[3] != d:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} exceeds the kernel's {MAX_HEAD_DIM}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention needs a contiguous last dim")
-    # output as (B, Sq, H, d): the caller's head merge is then a view
-    o = torch.empty(B, Sq, H, d, dtype=q.dtype, device=q.device).transpose(1, 2)
+    o = _empty_bhsd(B, H, Sq, d, q)
     lse = (
         torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
         if want_lse else None
     )
-    strides = (ctypes.c_longlong * 12)(*[
-        s for t in (q, k, v, o) for s in (t.stride(0), t.stride(2), t.stride(1))
-    ])
+    strides = (ctypes.c_longlong * 12)(*_bhsd_strides(q, k, v, o))
     KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         int(q.dtype == torch.bfloat16), B, H, Sq, Skv, d, strides,
         _scale(d, q.dtype),
-        shape=(B * H, Sq, Skv, d, str(q.dtype).replace("torch.", "")),
+        shape=(B * H, Sq, Skv, d, _dtype_name(q.dtype)),
     )
     return (o, lse) if want_lse else o
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, dvec: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward over (B, H, S, d): P recomputed from (q^, k, lse),
+    dvec = rowsum(dO * o) fp32 (B, H, Sq). Returns (dq, dk, dv) in the
+    input dtype, with the rounding points of the JAX kernels."""
+    d = q.shape[-1]
+    qs = (q * torch.tensor(_scale(d, q.dtype), dtype=q.dtype)).float()
+    p = torch.exp(torch.matmul(qs, k.float().transpose(-1, -2)) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - dvec[..., None])
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * (1.0 / math.sqrt(d))
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qs)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_args(q, k, v, do, lse, dvec):
+    """Check the backward's inputs; returns them ready for the kernels."""
+    _check(q, k, v)
+    B, H, Sq, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"do must match q {tuple(q.shape)} {q.dtype}, got "
+            f"{tuple(do.shape)} {do.dtype} on {do.device}"
+        )
+    for name, t in (("lse", lse), ("dvec", dvec)):
+        if t.shape != (B, H, Sq) or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{name} must be fp32 (B, H, Sq) on {q.device}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    return do, lse.contiguous(), dvec.contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, dvec) -> torch.Tensor:
+    """dq of attention over (B, H, S, d) CUDA tensors for the output
+    gradient `do`, from the forward's `lse` and dvec = rowsum(do * o),
+    both fp32 (B, H, Sq): launches the dq kernel or raises. dq is laid out
+    as (B, Sq, H, d)."""
+    do, lse, dvec = _bwd_args(q, k, v, do, lse, dvec)
+    B, H, Sq, d = q.shape
+    dq = _empty_bhsd(B, H, Sq, d, q)
+    strides = (ctypes.c_longlong * 15)(*_bhsd_strides(q, k, v, do, dq))
+    DQ_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, H, Sq, k.shape[2], d, strides,
+        _scale(d, q.dtype), 1.0 / math.sqrt(d),
+        shape=(B * H, Sq, k.shape[2], d, _dtype_name(q.dtype)),
+    )
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, dvec):
+    """(dk, dv) as `flash_attention_bwd_dq` gives dq: launches the dk/dv
+    kernel or raises. dk and dv are laid out as (B, Skv, H, d)."""
+    do, lse, dvec = _bwd_args(q, k, v, do, lse, dvec)
+    B, H, Sq, d = q.shape
+    Skv = k.shape[2]
+    dk = _empty_bhsd(B, H, Skv, d, k)
+    dv = _empty_bhsd(B, H, Skv, d, v)
+    strides = (ctypes.c_longlong * 18)(*_bhsd_strides(q, k, v, do, dk, dv))
+    DKV_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, H, Sq, Skv, d, strides,
+        _scale(d, q.dtype),
+        shape=(B * H, Sq, Skv, d, _dtype_name(q.dtype)),
+    )
+    return dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, dvec: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention over (B, H, S, d) tensors for the output
+    gradient `do`, from the forward's `lse` and dvec = rowsum(do * o),
+    both fp32 (B, H, Sq). A CPU tensor gets the plain version; a CUDA
+    tensor launches the dq kernel and the dk/dv kernel, or raises."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, do, lse, dvec)
+    return (flash_attention_bwd_dq(q, k, v, do, lse, dvec),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, dvec))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward with the LSE saved; backward D = rowsum(dO * o) in fp32
+    (outside the kernels, as `_flash_diff_bwd` computes it), then dq and
+    dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention(q, k, v, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dvec = (do.float() * o.float()).sum(-1)
+        return flash_attention_bwd(q, k, v, do, lse, dvec)
+
+
+def flash_attention_diff(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+) -> torch.Tensor:
+    """`flash_attention` with a gradient: where autograd records (grad
+    enabled and an input requires grad) the forward also writes the LSE
+    and the backward runs `flash_attention_bwd`; elsewhere it is
+    `flash_attention` itself."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return flash_attention(q, k, v)

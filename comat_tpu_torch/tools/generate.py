@@ -92,7 +92,8 @@ def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
     )
     sync()
     t1 = time.perf_counter()
-    images = pipe.decode_image(latents).clamp(0.0, 1.0)
+    with torch.no_grad():
+        images = pipe.decode_image(latents).clamp(0.0, 1.0)
     sync()
     t2 = time.perf_counter()
 

@@ -3,11 +3,12 @@ made from a seed.
 
 `from_jax_params` is the port's own copy of the name mapping of
 comat_tpu/models/hf_import.py (`_unet_hf_name`, `_clip_hf_name`,
-`_vae_hf_name`), read from it and not imported. Layouts change on the
-way: conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in), and
-the GEGLU kernel (dim, 2, 4*dim) -> diffusers' flat (8*dim, dim), values
-first, then gates. LoRA factors `lora_a` (in, r) / `lora_b` (r, out) keep
-the JAX layout.
+`_vae_hf_name`, `_blip_hf_name`), read from it and not imported. Layouts
+change on the way: conv kernels HWIO -> OIHW, dense kernels (in, out) ->
+(out, in), the GEGLU kernel (dim, 2, 4*dim) -> diffusers' flat (8*dim,
+dim), values first, then gates, and BLIP's separate vision q, k, v ->
+transformers' fused `qkv`. LoRA factors `lora_a` (in, r) / `lora_b`
+(r, out) keep the JAX layout.
 """
 
 from __future__ import annotations
@@ -176,6 +177,90 @@ def _vae_rule(path: Tuple[str, ...]) -> Optional[Rule]:
     return None
 
 
+_BLIP_TEXT = {
+    "self_q": "attention.self.query", "self_k": "attention.self.key",
+    "self_v": "attention.self.value", "self_out": "attention.output.dense",
+    "self_norm": "attention.output.LayerNorm",
+    "cross_q": "crossattention.self.query", "cross_k": "crossattention.self.key",
+    "cross_v": "crossattention.self.value",
+    "cross_out": "crossattention.output.dense",
+    "cross_norm": "crossattention.output.LayerNorm",
+    "fc1": "intermediate.dense", "fc2": "output.dense",
+    "ff_norm": "output.LayerNorm",
+}
+
+
+def _blip_rule(path: Tuple[str, ...]) -> Optional[Rule]:
+    """BLIPCaptioner leaves. The vision q, k and v map to thirds of the
+    fused `qkv`, named `<qkv leaf>#<0|1|2>` and joined in `_convert`."""
+    top, leaf = path[0], path[-1]
+    norm = leaf == "scale" or (leaf == "bias" and path[-2].endswith("norm"))
+    kind = "norm" if norm else "dense"
+    if top == "vision":
+        vpre = "vision_model."
+        p1 = path[1]
+        if p1 == "patch_embed":
+            name, fn = _leaf("conv", leaf)
+            return f"{vpre}embeddings.patch_embedding.{name}", fn
+        if p1 == "cls_token":
+            return f"{vpre}embeddings.class_embedding", _same
+        if p1 == "pos_embed":
+            return f"{vpre}embeddings.position_embedding", _same
+        if p1 == "post_norm":
+            return f"{vpre}post_layernorm.{_leaf('norm', leaf)[0]}", _same
+        m = re.fullmatch(r"layers_(\d+)", p1)
+        if m:
+            base = f"{vpre}encoder.layers.{m.group(1)}"
+            sub = path[2]
+            if sub in ("norm1", "norm2"):
+                return f"{base}.layer_{sub}.{_leaf('norm', leaf)[0]}", _same
+            name, fn = _leaf("dense", leaf)
+            if sub in ("q", "k", "v"):
+                return f"{base}.self_attn.qkv.{name}#{'qkv'.index(sub)}", fn
+            if sub == "proj":
+                return f"{base}.self_attn.projection.{name}", fn
+            return f"{base}.mlp.{sub}.{name}", fn
+        return None
+    tpre = "text_decoder.bert."
+    if top == "word_embed":
+        return f"{tpre}embeddings.word_embeddings.weight", _same
+    if top == "text_pos_embed":
+        return f"{tpre}embeddings.position_embeddings.weight", _same
+    if top == "embed_norm":
+        return f"{tpre}embeddings.LayerNorm.{_leaf('norm', leaf)[0]}", _same
+    m = re.fullmatch(r"text_layers_(\d+)", top)
+    if m and path[1] in _BLIP_TEXT:
+        name, fn = _leaf(kind, leaf)
+        return f"{tpre}encoder.layer.{m.group(1)}.{_BLIP_TEXT[path[1]]}.{name}", fn
+    head = "text_decoder.cls.predictions."
+    if top in ("head_transform", "head_norm"):
+        name, fn = _leaf(kind, leaf)
+        sub = "dense" if top == "head_transform" else "LayerNorm"
+        return f"{head}transform.{sub}.{name}", fn
+    if top == "lm_head":
+        return (f"{head}decoder.weight", _dense) if leaf == "kernel" else (
+            f"{head}bias", _same)
+    return None
+
+
+def blip_from_hf(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A transformers `BlipForConditionalGeneration` state dict (or the
+    tensors of its safetensors snapshot) -> the port captioner's state
+    dict. The names are the same; HF ties the LM head's decoder weight to
+    the word embeddings and its decoder bias to `predictions.bias`, and a
+    safetensors snapshot drops the tied weight, so it is restored from the
+    embeddings (the port's copy of `hf_import._alias_tied_blip`). Tensors
+    the captioner does not hold (the tied bias, `position_ids` buffers)
+    are dropped."""
+    head = "text_decoder.cls.predictions."
+    out = {k: v for k, v in tensors.items()
+           if not k.endswith("position_ids") and k != head + "decoder.bias"}
+    if head + "decoder.weight" not in out:
+        out[head + "decoder.weight"] = out[
+            "text_decoder.bert.embeddings.word_embeddings.weight"]
+    return out
+
+
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
     for key, value in tree.items():
         if isinstance(value, Mapping):
@@ -193,16 +278,20 @@ def _convert(tree: Mapping, rule) -> Dict[str, torch.Tensor]:
             continue
         name, fn = mapped
         out[name] = torch.tensor(np.asarray(fn(leaf)))
+    for name in sorted(n for n in out if n.endswith("#0")):
+        parts = [out.pop(f"{name[:-2]}#{i}") for i in range(3)]
+        out[name[:-2]] = torch.cat(parts, dim=0)
     return out
 
 
 def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{"unet", "text", "vae"} JAX parameter trees, as numpy arrays ->
-    state dicts of the port's modules under the same keys (CPU fp32
-    tensors; the modules cast them to their own dtypes on load). Keys
-    missing from `tree` are missing from the result; leaves the port does
-    not hold (the VAE encoder) are dropped."""
-    rules = {"unet": _unet_rule, "text": _clip_rule, "vae": _vae_rule}
+    """{"unet", "text", "vae", "blip"} JAX parameter trees, as numpy
+    arrays -> state dicts of the port's modules under the same keys (CPU
+    fp32 tensors; the modules cast them to their own dtypes on load).
+    Keys missing from `tree` are missing from the result; leaves the port
+    does not hold (the VAE encoder) are dropped."""
+    rules = {"unet": _unet_rule, "text": _clip_rule, "vae": _vae_rule,
+             "blip": _blip_rule}
     return {k: _convert(tree[k], rule) for k, rule in rules.items() if k in tree}
 
 

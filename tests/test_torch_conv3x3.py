@@ -87,3 +87,13 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         tconv.conv3x3_same(x, torch.zeros(3, 3, 8, 8, device="meta"))
 
+
+
+def test_gate_needs_channels_the_kernel_takes_both_ways():
+    """dx runs the forward kernel with C and Cout swapped, and the kernel
+    takes channel counts that are multiples of 8: the gate asks that of
+    both, as the JAX gate checks both directions."""
+    gate = tconv.use_conv_kernel
+    assert gate((2, 128, 128, 136), (3, 3, 136, 256))
+    assert not gate((2, 128, 128, 136), (3, 3, 136, 130))
+    assert not gate((2, 128, 128, 130), (3, 3, 130, 136))

@@ -31,7 +31,9 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
-    assert "comat_tpu_torch.ops.flash_attention" in mods
+    assert {"comat_tpu_torch.ops.flash_attention", "comat_tpu_torch.models.blip",
+            "comat_tpu_torch.losses.caption_reward",
+            "comat_tpu_torch.training.train_step"} <= set(mods)
     res = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -58,9 +60,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         from comat_tpu_torch.models.pipeline import (
             DiffusionPipeline, make_pipeline_config)
         from comat_tpu_torch.tools.generate import main
+        from comat_tpu_torch.config import BLIPConfig
+        from comat_tpu_torch.models.blip import make_blip
         cfg = make_pipeline_config("sd_1_5", lora_rank=0, resolution=64, tiny=True)
         for call in (lambda: DiffusionPipeline(cfg),
-                     lambda: main(["--tiny", "--prompt", "a cat"])):
+                     lambda: main(["--tiny", "--prompt", "a cat"]),
+                     lambda: make_blip(BLIPConfig.tiny())):
             try:
                 call()
             except RuntimeError as e:
@@ -69,4 +74,4 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
                 print("RAN")
     """)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count("RAISED") == 2, res.stdout
+    assert res.stdout.count("RAISED") == 3, res.stdout

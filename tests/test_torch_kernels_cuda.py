@@ -1,4 +1,7 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+flash attention forward and backward (dq; dk and dv), the 3x3 conv
+forward, its dx (the forward kernel through the autograd Function) and
+its dw.
 
 These tests need an NVIDIA card and skip without one. The file imports
 no JAX, so it runs where JAX is not installed:
@@ -7,7 +10,10 @@ no JAX, so it runs where JAX is not installed:
 
 Tolerances: fp32 1e-4 absolute (the same sums in another order, TF32
 off); bf16 |kernel - plain| <= 1e-2 + 2^-7 |plain|, since both round an
-fp32 result to bf16 and may land one bf16 step apart.
+fp32 result to bf16 and may land one bf16 step apart. The backward
+inputs are scaled so that every gradient is of order one (dO by
+sqrt(Sq), dy by 1/sqrt(B*H*W) for dw), so that the absolute tolerance
+means the same there.
 """
 
 import math
@@ -85,3 +91,80 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         fa.flash_attention(q, q, q)                                    # d > 512
     with pytest.raises(ValueError):
         fa.flash_attention(q[..., :8].half(), q[..., :8].half(), q[..., :8].half())
+
+
+def _flash_inputs(card, shape, dtype):
+    B, H, Sq, Skv, d = shape
+    q, k, v, do = (
+        torch.randn(B, S, H, d, generator=card, device="cuda").to(dtype).transpose(1, 2)
+        for S in (Sq, Skv, Skv, Sq)
+    )
+    return q, k, v, (do.float() * math.sqrt(Sq)).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # (B, H, Sq, Skv, d)
+    (2, 8, 1024, 1024, 40), (2, 8, 512, 512, 80), (2, 8, 256, 256, 160),
+    (1, 1, 1024, 1024, 512), (1, 2, 100, 200, 40), (1, 3, 77, 300, 64),
+    (1, 1, 50, 40, 512),
+])
+def test_flash_backward_kernels_match_plain(card, dtype, shape):
+    q, k, v, do = _flash_inputs(card, shape, dtype)
+    o, lse = fa.flash_attention(q, k, v, want_lse=True)
+    dvec = (do.float() * o.float()).sum(-1)
+    n_dq, n_dkv = fa.DQ_KERNEL.launches, fa.DKV_KERNEL.launches
+    got = fa.flash_attention_bwd(q, k, v, do, lse, dvec)
+    assert (fa.DQ_KERNEL.launches, fa.DKV_KERNEL.launches) == (n_dq + 1, n_dkv + 1)
+    want = fa.flash_attention_bwd_ref(q, k, v, do, lse, dvec)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        _assert_close(g, w, dtype)
+    # each output row is written by one block: a second run is bitwise equal
+    for g, g2 in zip(got, fa.flash_attention_bwd(q, k, v, do, lse, dvec)):
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # (B, H, C, Cout)
+    (1, 16, 8, 16), (2, 24, 16, 24), (1, 128, 128, 136), (2, 128, 256, 128),
+])
+def test_conv_backward_kernels_match_plain(card, dtype, shape):
+    B, H, C, Cout = shape
+    x = torch.randn(B, H, H, C, generator=card, device="cuda").to(dtype)
+    w = (torch.randn(3, 3, C, Cout, generator=card, device="cuda")
+         / math.sqrt(9 * C)).to(dtype)
+    dy = torch.randn(B, H, H, Cout, generator=card, device="cuda").to(dtype)
+    n_fwd, n_dw = cv.KERNEL.launches, cv.DW_KERNEL.launches
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    cv.conv3x3_same(xr, wr).backward(dy)
+    assert (cv.KERNEL.launches, cv.DW_KERNEL.launches) == (n_fwd + 2, n_dw + 1)
+    xp, wp = x.float().requires_grad_(), w.float().requires_grad_()
+    cv.conv3x3_ref(xp, wp).backward(dy.float())   # plain vjp, fp32
+    _assert_close(xr.grad, xp.grad, dtype)
+    dy_s = (dy.float() / math.sqrt(B * H * H)).to(dtype)
+    dw = cv.conv3x3_dw(x, dy_s, dtype)
+    _assert_close(dw, cv.conv3x3_dw_ref(x, dy_s, dtype), dtype)
+    assert torch.equal(dw, cv.conv3x3_dw(x, dy_s, dtype))
+
+
+@pytest.mark.cuda
+def test_kernel_outputs_carry_grad_fn(card):
+    """A kernel's output records its backward when an input requires
+    grad; the frozen-weight conv skips dw."""
+    q = torch.randn(1, 2, 256, 40, generator=card, device="cuda", requires_grad=True)
+    o = fa.flash_attention_diff(q, q.detach(), q.detach())
+    assert o.grad_fn is not None
+    n_dq = fa.DQ_KERNEL.launches
+    o.sum().backward()
+    assert fa.DQ_KERNEL.launches == n_dq + 1 and q.grad is not None
+    x = torch.randn(1, 128, 128, 128, generator=card, device="cuda", requires_grad=True)
+    w = torch.randn(3, 3, 128, 128, generator=card, device="cuda") / 34.0
+    y = cv.conv3x3_same(x, w)
+    assert y.grad_fn is not None
+    n_dw = cv.DW_KERNEL.launches
+    y.sum().backward()
+    assert cv.DW_KERNEL.launches == n_dw and x.grad is not None

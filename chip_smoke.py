@@ -5,7 +5,11 @@
 
 Phases; any failure ends the run with a nonzero exit and no result line:
 1. build: print the card's name and power limit, build every CUDA kernel
-   (one nvcc per source, all four at once);
+   (one nvcc per source, all four at once), print what ptxas reports for
+   each kernel (registers, spills), and count the tensor-core
+   instructions (HGMMA, HMMA) of each kernel in the built SASS
+   (`cuobjdump -sass`); fail if the bf16 code of the flash forward (A) or
+   of the 3x3 conv (B) has none;
 2. kernels: each kernel against its plain PyTorch version at the shapes
    the two main paths give it, in fp32 (TF32 off) and bf16, with its time,
    the plain version's, one PyTorch library call's, and its bound: the
@@ -109,6 +113,54 @@ def gpu_name_and_power() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# kernel functions whose SASS must hold tensor-core instructions: the
+# bf16 code of the flash forward (A) and of the 3x3 conv (B)
+TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "conv3x3_bf16_kernel")
+
+
+def sass_tensor_core_counts(lib_path: str) -> dict:
+    """{kernel function: (HGMMA count, HMMA count)} in a built library's
+    SASS, read with cuobjdump from the toolkit that built it."""
+    from comat_tpu_torch.ops._build import _nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None and "HGMMA" in line:
+            counts[name][0] += 1
+        elif name is not None and "HMMA" in line:
+            counts[name][1] += 1
+    return {n: tuple(c) for n, c in counts.items()}
+
+
+def phase_sass(paths) -> dict:
+    """Print each kernel's tensor-core instruction counts; raise unless
+    every bf16 instantiation of A and B has some."""
+    found = {}
+    for source, path in sorted(paths.items()):
+        others = [0, 0, 0]
+        for fn, (hgmma, hmma) in sass_tensor_core_counts(path).items():
+            kernel = next((k for k in TENSOR_CORE_KERNELS if k in fn), None)
+            if kernel is None:
+                others = [others[0] + 1, others[1] + hgmma, others[2] + hmma]
+                continue
+            found.setdefault(kernel, []).append(hgmma + hmma)
+            log(f"  {source}: {fn}: {hgmma} HGMMA, {hmma} HMMA")
+        if others[0]:
+            log(f"  {source}: {others[0]} other kernels: {others[1]} HGMMA, "
+                f"{others[2]} HMMA")
+    for kernel in TENSOR_CORE_KERNELS:
+        if not found.get(kernel) or min(found[kernel]) == 0:
+            raise AssertionError(f"{kernel}: no tensor-core instructions in "
+                                 f"its SASS ({found.get(kernel)})")
+    return found
 
 
 def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
@@ -674,8 +726,10 @@ def main() -> int:
     for path in paths.values():
         if os.path.exists(path + ".log"):
             for line in open(path + ".log"):
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers", "spill",
+                                           "warning")):
                     log("  " + line.strip())
+    phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
     log("[2/6] kernels against their plain versions")

@@ -41,9 +41,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the library built from `csrc/<name>.cu` as it stands now."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Path of the library built from `csrc/<name>.cu` as it stands now,
+    with the headers under `csrc/` that it may include."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

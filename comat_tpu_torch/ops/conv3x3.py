@@ -106,6 +106,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} needs C % 8 == 0, got C={x.shape[-1]}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{name} needs contiguous NHWC tensors")
+    if x.dtype == torch.bfloat16 and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"{name} reads bf16 through TMA: 16-byte aligned tensors")
 
 
 def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, role: str = "fwd") -> torch.Tensor:
@@ -116,7 +118,10 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, role: str = "fwd") -> torch.Te
     kernel or raises. On CUDA, x and w must be contiguous (a
     channels_last NCHW tensor permuted to NHWC is), fp32 or bf16, and C a
     multiple of 8. `role` ("fwd", or "dx" from the backward) only labels
-    the launch in `KERNEL.launches_by_shape`."""
+    the launch in `KERNEL.launches_by_shape`. The bf16 kernel reads w
+    through a TMA tensor map, whose row stride must be a multiple of 16
+    bytes: a bf16 Cout that is not a multiple of 8 is zero-padded in w and
+    sliced off y."""
     if x.device.type == "cpu":
         return conv3x3_ref(x, w)
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, x.shape[3]):
@@ -127,6 +132,9 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, role: str = "fwd") -> torch.Te
     _check(x, w, "conv3x3")
     B, H, W, C = x.shape
     Cout = w.shape[3]
+    if x.dtype == torch.bfloat16 and Cout % 8:
+        y = conv3x3_fwd(x, F.pad(w, (0, -Cout % 8)), role)
+        return y[..., :Cout].contiguous()
     y = torch.empty(B, H, W, Cout, dtype=x.dtype, device=x.device)
     KERNEL.launch(
         x.data_ptr(), w.data_ptr(), y.data_ptr(),

@@ -7,9 +7,10 @@ Port of comat_tpu/ops/flash_attention.py (`_fwd` / `flash_attention` and
 VJP). The kernels never materialise the (Sq, Skv) probabilities; the plain
 versions `flash_attention_ref` and `flash_attention_bwd_ref` do, in fp32,
 and are what a CPU tensor gets. All scale q by 1/sqrt(d) rounded to the
-input dtype before the product, as the JAX `_fwd` does, and the backward
-rounds where the JAX kernels round (dS to k's and q's dtype, P to dO's),
-so bf16 results line up.
+input dtype before the product, as the JAX `_fwd` does, and round where
+the JAX kernels round (the forward's P to v's dtype, with the denominator
+summed from the rounded P; the backward's dS to k's and q's dtype, P to
+dO's), so bf16 results line up.
 """
 
 from __future__ import annotations
@@ -91,19 +92,38 @@ def _check(q, k, v) -> None:
         raise ValueError("flash attention needs a contiguous last dim")
 
 
+def _check_tma(*tensors) -> None:
+    """What the bf16 forward kernel's TMA tensor maps take: d % 8 == 0,
+    16-byte aligned tensors, and (batch, seq, head) strides that are
+    multiples of 8 elements (16 bytes) wherever the dim has extent > 1."""
+    for t in tensors:
+        if t.shape[-1] % 8 or t.data_ptr() % 16 or any(
+            t.stride(i) % 8 for i in range(3) if t.shape[i] > 1
+        ):
+            raise ValueError(
+                f"the bf16 flash kernel reads through TMA: d % 8 == 0, 16-byte "
+                f"alignment and strides in multiples of 8, got shape "
+                f"{tuple(t.shape)} strides {t.stride()}"
+            )
+
+
 def flash_attention_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain attention over (B, H, S, d): materialised fp32 softmax.
 
-    Returns (o in q's dtype, lse fp32 (B, H, Sq))."""
+    Rounds where the JAX kernel rounds: the probabilities exp(logits - m)
+    go to v's dtype before P*V, and the denominator is the fp32 sum of the
+    rounded values (the kernel's ones column appended to V); a no-op in
+    fp32. Returns (o in q's dtype, lse fp32 (B, H, Sq))."""
     scale = torch.tensor(_scale(q.shape[-1], q.dtype), dtype=q.dtype)
     qs = (q * scale).float()
     logits = torch.matmul(qs, k.float().transpose(-1, -2))
-    lse = torch.logsumexp(logits, dim=-1)
-    p = torch.exp(logits - lse[..., None])
-    o = torch.matmul(p, v.float()).to(q.dtype)
-    return o, lse
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m).to(v.dtype).float()
+    l = p.sum(dim=-1, keepdim=True)
+    o = (torch.matmul(p, v.float()) / l).to(q.dtype)
+    return o, (m + torch.log(l)).squeeze(-1)
 
 
 def flash_attention(
@@ -121,6 +141,8 @@ def flash_attention(
         o, lse = flash_attention_ref(q, k, v)
         return (o, lse) if want_lse else o
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_tma(q, k, v)
     B, H, Sq, d = q.shape
     Skv = k.shape[2]
     o = _empty_bhsd(B, H, Sq, d, q)

@@ -47,6 +47,9 @@ def _assert_close(got, want, dtype):
     # (B, H, Sq, Skv, d)
     (2, 8, 1024, 1024, 40), (2, 8, 1024, 1024, 80), (2, 8, 256, 256, 160),
     (1, 1, 1024, 1024, 512), (1, 2, 100, 200, 40), (1, 3, 77, 300, 64),
+    # ragged edges of the tensor-core tiles (128 q rows, 32-128 keys)
+    (1, 2, 200, 333, 40), (1, 2, 191, 257, 80), (1, 2, 129, 65, 160),
+    (1, 1, 300, 130, 512), (2, 3, 33, 200, 40), (1, 1, 17, 50, 512),
 ])
 def test_flash_kernel_matches_plain(card, dtype, shape):
     B, H, Sq, Skv, d = shape
@@ -69,6 +72,10 @@ def test_flash_kernel_matches_plain(card, dtype, shape):
 @pytest.mark.parametrize("shape", [
     # (B, H, C, Cout)
     (1, 16, 8, 16), (2, 24, 16, 20), (1, 128, 128, 136), (2, 128, 256, 128),
+    # ragged edges of the tensor-core tile (2 rows x 64 columns, 128 out
+    # channels, 64-channel chunks): W = 100 and 72, C = 8 and 136, Cout =
+    # 20 and 136
+    (1, 100, 136, 20), (2, 72, 8, 136), (1, 100, 136, 136),
 ])
 def test_conv_kernel_matches_plain(card, dtype, shape):
     B, H, C, Cout = shape
@@ -91,6 +98,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         fa.flash_attention(q, q, q)                                    # d > 512
     with pytest.raises(ValueError):
         fa.flash_attention(q[..., :8].half(), q[..., :8].half(), q[..., :8].half())
+    q12 = torch.zeros(1, 1, 8, 12, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q12, q12, q12)      # bf16 TMA rows: d % 8
 
 
 def _flash_inputs(card, shape, dtype):
@@ -131,6 +141,7 @@ def test_flash_backward_kernels_match_plain(card, dtype, shape):
 @pytest.mark.parametrize("shape", [
     # (B, H, C, Cout)
     (1, 16, 8, 16), (2, 24, 16, 24), (1, 128, 128, 136), (2, 128, 256, 128),
+    (1, 100, 136, 136),
 ])
 def test_conv_backward_kernels_match_plain(card, dtype, shape):
     B, H, C, Cout = shape

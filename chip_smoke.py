@@ -8,8 +8,8 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    (one nvcc per source, all four at once), print what ptxas reports for
    each kernel (registers, spills), and count the tensor-core
    instructions (HGMMA, HMMA) of each kernel in the built SASS
-   (`cuobjdump -sass`); fail if the bf16 code of the flash forward (A) or
-   of the 3x3 conv (B) has none;
+   (`cuobjdump -sass`); fail if the bf16 code of the flash forward (A),
+   of its dq or dk/dv backward, or of the 3x3 conv (B) has none;
 2. kernels: each kernel against its plain PyTorch version at the shapes
    the two main paths give it, in fp32 (TF32 off) and bf16, with its time,
    the plain version's, one PyTorch library call's, and its bound: the
@@ -116,8 +116,10 @@ def gpu_name_and_power() -> str:
 
 
 # kernel functions whose SASS must hold tensor-core instructions: the
-# bf16 code of the flash forward (A) and of the 3x3 conv (B)
-TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "conv3x3_bf16_kernel")
+# bf16 code of the flash forward (A), of its dq and dk/dv backward, and of
+# the 3x3 conv (B)
+TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                       "flash_bwd_dkv_bf16_kernel", "conv3x3_bf16_kernel")
 
 
 def sass_tensor_core_counts(lib_path: str) -> dict:
@@ -142,7 +144,7 @@ def sass_tensor_core_counts(lib_path: str) -> dict:
 
 def phase_sass(paths) -> dict:
     """Print each kernel's tensor-core instruction counts; raise unless
-    every bf16 instantiation of A and B has some."""
+    every bf16 instantiation of TENSOR_CORE_KERNELS has some."""
     found = {}
     for source, path in sorted(paths.items()):
         others = [0, 0, 0]

@@ -436,32 +436,20 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// Byte strides (S, H, B) of a (d, S, H, B) tensor map. A dimension of
-// extent 1 is never stepped over; its stride is replaced by a valid one.
-void map_strides(uint64_t out[3], long long ss, long long sh, long long sb, int S, int H, int B,
-                 int d) {
-  out[0] = 2ull * (S > 1 ? ss : d);
-  out[1] = 2ull * (H > 1 ? sh : static_cast<long long>(S) * (S > 1 ? ss : d));
-  out[2] = 2ull * (B > 1 ? sb : static_cast<long long>(H) * (out[1] / 2));
-}
-
 template <int DQ, int NO, int BK, int STAGES, bool ONES>
 cudaError_t launch_bf16(const FlashParams& p, cudaStream_t stream) {
   using Cfg = TcConfig<DQ, NO, BK, STAGES>;
   CUtensorMap tq, tk, tv;
-  uint64_t st[3];
-  const uint64_t qd[4] = {static_cast<uint64_t>(p.d), static_cast<uint64_t>(p.Sq),
-                          static_cast<uint64_t>(p.H), static_cast<uint64_t>(p.B)};
-  const uint64_t kd[4] = {static_cast<uint64_t>(p.d), static_cast<uint64_t>(p.Skv),
-                          static_cast<uint64_t>(p.H), static_cast<uint64_t>(p.B)};
-  const uint32_t qb[4] = {64, kBQ, 1, 1}, kb[4] = {64, BK, 1, 1};
-  map_strides(st, p.q_ss, p.q_sh, p.q_sb, p.Sq, p.H, p.B, p.d);
-  cudaError_t err = hopper::make_tmap(&tq, p.q, 4, qd, st, qb);
-  if (err != cudaSuccess) return err;
-  map_strides(st, p.k_ss, p.k_sh, p.k_sb, p.Skv, p.H, p.B, p.d);
-  if ((err = hopper::make_tmap(&tk, p.k, 4, kd, st, kb)) != cudaSuccess) return err;
-  map_strides(st, p.v_ss, p.v_sh, p.v_sb, p.Skv, p.H, p.B, p.d);
-  if ((err = hopper::make_tmap(&tv, p.v, 4, kd, st, kb)) != cudaSuccess) return err;
+  cudaError_t err;
+  if ((err = hopper::make_bshd_map(&tq, p.q, p.B, p.Sq, p.H, p.d, p.q_sb, p.q_ss, p.q_sh,
+                                   kBQ)) != cudaSuccess)
+    return err;
+  if ((err = hopper::make_bshd_map(&tk, p.k, p.B, p.Skv, p.H, p.d, p.k_sb, p.k_ss, p.k_sh,
+                                   BK)) != cudaSuccess)
+    return err;
+  if ((err = hopper::make_bshd_map(&tv, p.v, p.B, p.Skv, p.H, p.d, p.v_sb, p.v_ss, p.v_sh,
+                                   BK)) != cudaSuccess)
+    return err;
   constexpr auto kernel = flash_fwd_bf16_kernel<DQ, NO, BK, STAGES, ONES>;
   if ((err = hopper::allow_smem<kernel>(Cfg::kSmem)) != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.B * p.H, (p.d + 64 * NO - 1) / (64 * NO));

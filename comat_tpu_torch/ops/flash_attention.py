@@ -5,12 +5,12 @@ their plain PyTorch versions.
 Port of comat_tpu/ops/flash_attention.py (`_fwd` / `flash_attention` and
 `flash_attention_diff` with its `_flash_diff_fwd` / `_flash_diff_bwd`
 VJP). The kernels never materialise the (Sq, Skv) probabilities; the plain
-versions `flash_attention_ref` and `flash_attention_bwd_ref` do, in fp32,
-and are what a CPU tensor gets. All scale q by 1/sqrt(d) rounded to the
-input dtype before the product, as the JAX `_fwd` does, and round where
-the JAX kernels round (the forward's P to v's dtype, with the denominator
-summed from the rounded P; the backward's dS to k's and q's dtype, P to
-dO's), so bf16 results line up.
+versions `flash_attention_ref` and `flash_attention_bwd_ref` do, with
+fp32 sums, and are what a CPU tensor gets. All scale q by 1/sqrt(d)
+rounded to the input dtype before the product, as the JAX `_fwd` does,
+and round where the JAX kernels round (the forward's P to v's dtype,
+with the denominator summed from the rounded P; the backward's dS to k's
+and q's dtype, P to dO's), so bf16 results line up.
 """
 
 from __future__ import annotations
@@ -92,16 +92,20 @@ def _check(q, k, v) -> None:
         raise ValueError("flash attention needs a contiguous last dim")
 
 
+def _tma_ok(t: torch.Tensor) -> bool:
+    """What the bf16 kernels' TMA tensor maps take: d % 8 == 0, a 16-byte
+    aligned tensor, and (batch, seq, head) strides that are multiples of
+    8 elements (16 bytes) wherever the dim has extent > 1."""
+    return not (t.shape[-1] % 8 or t.data_ptr() % 16 or any(
+        t.stride(i) % 8 for i in range(3) if t.shape[i] > 1
+    ))
+
+
 def _check_tma(*tensors) -> None:
-    """What the bf16 forward kernel's TMA tensor maps take: d % 8 == 0,
-    16-byte aligned tensors, and (batch, seq, head) strides that are
-    multiples of 8 elements (16 bytes) wherever the dim has extent > 1."""
     for t in tensors:
-        if t.shape[-1] % 8 or t.data_ptr() % 16 or any(
-            t.stride(i) % 8 for i in range(3) if t.shape[i] > 1
-        ):
+        if not _tma_ok(t):
             raise ValueError(
-                f"the bf16 flash kernel reads through TMA: d % 8 == 0, 16-byte "
+                f"the bf16 flash kernels read through TMA: d % 8 == 0, 16-byte "
                 f"alignment and strides in multiples of 8, got shape "
                 f"{tuple(t.shape)} strides {t.stride()}"
             )
@@ -161,28 +165,47 @@ def flash_attention(
     return (o, lse) if want_lse else o
 
 
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over the last two dims with fp32 sums and an fp32 result, as
+    JAX's `dot_general(..., preferred_element_type=f32)`: bf16 operands on
+    the card go through cuBLAS's bf16 GEMM (the tensor cores, fp32
+    accumulation), anything else through an fp32 matmul."""
+    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                        out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
 def flash_attention_bwd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, dvec: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward over (B, H, S, d): P recomputed from (q^, k, lse),
     dvec = rowsum(dO * o) fp32 (B, H, Sq). Returns (dq, dk, dv) in the
-    input dtype, with the rounding points of the JAX kernels."""
+    input dtype, with the rounding points of the JAX kernels: each of the
+    five products takes its operands in the input dtype and sums in fp32
+    (`_mm32`)."""
     d = q.shape[-1]
-    qs = (q * torch.tensor(_scale(d, q.dtype), dtype=q.dtype)).float()
-    p = torch.exp(torch.matmul(qs, k.float().transpose(-1, -2)) - lse[..., None])
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    qs = q * torch.tensor(_scale(d, q.dtype), dtype=q.dtype)
+    p = torch.exp(_mm32(qs, k.transpose(-1, -2)) - lse[..., None])
+    dp = _mm32(do, v.transpose(-1, -2))
     ds = p * (dp - dvec[..., None])
-    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * (1.0 / math.sqrt(d))
-    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qs)
-    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dq = _mm32(ds.to(k.dtype), k) * (1.0 / math.sqrt(d))
+    dk = _mm32(ds.to(q.dtype).transpose(-1, -2), qs)
+    dv = _mm32(p.to(do.dtype).transpose(-1, -2), do)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _bwd_args(q, k, v, do, lse, dvec):
-    """Check the backward's inputs; returns them ready for the kernels."""
+    """Check the backward's inputs; returns what both kernels read: (the q
+    operand, qscale, do, lse, dvec). The kernels use q^ = q * qscale
+    rounded to the dtype. In bf16 that product is formed here, once, and
+    the kernels take q^ with qscale = 1 (JAX's `_fwd` hands its scaled
+    `qf` to the backward likewise); a `do` whose layout breaks a TMA rule
+    (autograd chooses it) is copied to the (B, S, H, d) layout."""
     _check(q, k, v)
-    B, H, Sq, _ = q.shape
+    B, H, Sq, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(
             f"do must match q {tuple(q.shape)} {q.dtype}, got "
@@ -191,9 +214,44 @@ def _bwd_args(q, k, v, do, lse, dvec):
     for name, t in (("lse", lse), ("dvec", dvec)):
         if t.shape != (B, H, Sq) or t.dtype != torch.float32 or t.device != q.device:
             raise ValueError(f"{name} must be fp32 (B, H, Sq) on {q.device}")
-    if do.stride(-1) != 1:
+    scale = _scale(d, q.dtype)
+    if q.dtype == torch.bfloat16:
+        _check_tma(k, v)
+        if not _tma_ok(do):
+            do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        q, scale = q * torch.tensor(scale, dtype=q.dtype), 1.0
+    elif do.stride(-1) != 1:
         do = do.contiguous()
-    return do, lse.contiguous(), dvec.contiguous()
+    return q, scale, do, lse.contiguous(), dvec.contiguous()
+
+
+def _launch_dq(q, k, v, qk, qscale, do, lse, dvec) -> torch.Tensor:
+    B, H, Sq, d = q.shape
+    dq = _empty_bhsd(B, H, Sq, d, q)
+    strides = (ctypes.c_longlong * 15)(*_bhsd_strides(qk, k, v, do, dq))
+    DQ_KERNEL.launch(
+        qk.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, H, Sq, k.shape[2], d, strides,
+        qscale, 1.0 / math.sqrt(d),
+        shape=(B * H, Sq, k.shape[2], d, _dtype_name(q.dtype)),
+    )
+    return dq
+
+
+def _launch_dkv(q, k, v, qk, qscale, do, lse, dvec):
+    B, H, Sq, d = q.shape
+    Skv = k.shape[2]
+    dk = _empty_bhsd(B, H, Skv, d, k)
+    dv = _empty_bhsd(B, H, Skv, d, v)
+    strides = (ctypes.c_longlong * 18)(*_bhsd_strides(qk, k, v, do, dk, dv))
+    DKV_KERNEL.launch(
+        qk.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, H, Sq, Skv, d, strides, qscale,
+        shape=(B * H, Sq, Skv, d, _dtype_name(q.dtype)),
+    )
+    return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, dvec) -> torch.Tensor:
@@ -201,37 +259,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dvec) -> torch.Tensor:
     gradient `do`, from the forward's `lse` and dvec = rowsum(do * o),
     both fp32 (B, H, Sq): launches the dq kernel or raises. dq is laid out
     as (B, Sq, H, d)."""
-    do, lse, dvec = _bwd_args(q, k, v, do, lse, dvec)
-    B, H, Sq, d = q.shape
-    dq = _empty_bhsd(B, H, Sq, d, q)
-    strides = (ctypes.c_longlong * 15)(*_bhsd_strides(q, k, v, do, dq))
-    DQ_KERNEL.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, Sq, k.shape[2], d, strides,
-        _scale(d, q.dtype), 1.0 / math.sqrt(d),
-        shape=(B * H, Sq, k.shape[2], d, _dtype_name(q.dtype)),
-    )
-    return dq
+    return _launch_dq(q, k, v, *_bwd_args(q, k, v, do, lse, dvec))
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, dvec):
     """(dk, dv) as `flash_attention_bwd_dq` gives dq: launches the dk/dv
     kernel or raises. dk and dv are laid out as (B, Skv, H, d)."""
-    do, lse, dvec = _bwd_args(q, k, v, do, lse, dvec)
-    B, H, Sq, d = q.shape
-    Skv = k.shape[2]
-    dk = _empty_bhsd(B, H, Skv, d, k)
-    dv = _empty_bhsd(B, H, Skv, d, v)
-    strides = (ctypes.c_longlong * 18)(*_bhsd_strides(q, k, v, do, dk, dv))
-    DKV_KERNEL.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, Sq, Skv, d, strides,
-        _scale(d, q.dtype),
-        shape=(B * H, Sq, Skv, d, _dtype_name(q.dtype)),
-    )
-    return dk, dv
+    return _launch_dkv(q, k, v, *_bwd_args(q, k, v, do, lse, dvec))
 
 
 def flash_attention_bwd(
@@ -244,8 +278,8 @@ def flash_attention_bwd(
     tensor launches the dq kernel and the dk/dv kernel, or raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, do, lse, dvec)
-    return (flash_attention_bwd_dq(q, k, v, do, lse, dvec),
-            *flash_attention_bwd_dkv(q, k, v, do, lse, dvec))
+    args = _bwd_args(q, k, v, do, lse, dvec)
+    return _launch_dq(q, k, v, *args), *_launch_dkv(q, k, v, *args)
 
 
 class _FlashAttention(torch.autograd.Function):

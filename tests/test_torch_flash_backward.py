@@ -74,6 +74,52 @@ def test_function_matches_plain_autograd(shape):
         np.testing.assert_allclose(g, w, atol=TOL, rtol=0)
 
 
+BF16_SHAPES = [(1, 2, 128, 256, 40), (1, 2, 64, 200, 80), (1, 1, 32, 100, 512)]
+
+
+def _bf16_agrees(got, want, name):
+    """At most 1 % of the outputs differ, and none by more than one bf16
+    step of the JAX gradient (2^-7 of the binade of its largest value):
+    both sides round fp32 sums taken in another order to bf16 at the same
+    points. The step is the gradient's, not each output's own: where a
+    sum cancels, a small output carries the rounding of its large terms."""
+    got = np.asarray(got, dtype=np.float32)
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape, name
+    diff = np.abs(got - want)
+    step = np.exp2(np.floor(np.log2(np.abs(want).max())) - 7)
+    assert diff.max() <= step, (name, float(diff.max()), float(step))
+    assert np.mean(diff > 0) <= 0.01, (name, float(np.mean(diff > 0)))
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_backward_rounds_where_pallas_rounds(shape):
+    """The port's plain bf16 backward, and `flash_attention_diff` end to
+    end, against JAX's `_flash_diff_bwd` on its own residuals, the Pallas
+    kernels in interpret mode: P is rounded to dO's dtype before dv, dS
+    to k's and q's before dq and dk, and every sum is fp32."""
+    B, H, Sq, Skv, d = shape
+    q, k, v, do = (torch.tensor(a).to(torch.bfloat16) for a in _inputs(shape))
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+                       for t in (q, k, v, do))
+    with pltpu.force_tpu_interpret_mode():
+        _, res = jfa._flash_diff_fwd(jq, jk, jv)
+        want = [np.asarray(w.astype(jnp.float32))
+                for w in jfa._flash_diff_bwd(res, jdo)]
+    # JAX's residuals: the padded output and the LSE broadcast over 8 rows
+    o = torch.tensor(np.asarray(res[3][:, :Sq, :d].astype(jnp.float32)))
+    o = o.reshape(B, H, Sq, d).to(torch.bfloat16)
+    lse = torch.tensor(np.asarray(res[4][:, 0, :Sq])).reshape(B, H, Sq)
+    dvec = (do.float() * o.float()).sum(-1)
+    plain = tfa.flash_attention_bwd_ref(q, k, v, do, lse, dvec)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    tfa.flash_attention_diff(*ts).backward(do)
+    for name, p, t, w in zip(("dq", "dk", "dv"), plain, ts, want):
+        assert p.dtype == torch.bfloat16 and t.grad.dtype == torch.bfloat16
+        _bf16_agrees(p.float().numpy(), w, f"plain {name}")
+        _bf16_agrees(t.grad.float().numpy(), w, f"end to end {name}")
+
+
 def test_bwd_wrapper_takes_plain_version_on_cpu():
     q, k, v, do = (torch.tensor(a) for a in _inputs(SHAPES[-1], seed=2))
     o, lse = tfa.flash_attention(q, k, v, want_lse=True)

@@ -10,7 +10,10 @@ no JAX, so it runs where JAX is not installed:
 
 Tolerances: fp32 1e-4 absolute (the same sums in another order, TF32
 off); bf16 |kernel - plain| <= 1e-2 + 2^-7 |plain|, since both round an
-fp32 result to bf16 and may land one bf16 step apart. The backward
+fp32 result to bf16 and may land one bf16 step apart. The bf16 backward
+also rounds dS and P to bf16 inside; its plain version sums each product
+of bf16 operands on the tensor cores (cuBLAS's bf16 GEMM, as the kernels
+and JAX's dot_general do), so both round the same dS. The backward
 inputs are scaled so that every gradient is of order one (dO by
 sqrt(Sq), dy by 1/sqrt(B*H*W) for dw), so that the absolute tolerance
 means the same there.
@@ -119,6 +122,11 @@ def _flash_inputs(card, shape, dtype):
     (2, 8, 1024, 1024, 40), (2, 8, 512, 512, 80), (2, 8, 256, 256, 160),
     (1, 1, 1024, 1024, 512), (1, 2, 100, 200, 40), (1, 3, 77, 300, 64),
     (1, 1, 50, 40, 512),
+    # ragged edges of the tensor-core tiles (64-row blocks of queries or
+    # keys per warpgroup, 16-64-row streamed tiles, column blocks at d =
+    # 160 and 512), and Sq < 64 with Skv under one key tile
+    (1, 2, 200, 333, 40), (1, 2, 191, 257, 80), (1, 2, 129, 65, 160),
+    (1, 1, 300, 130, 512), (2, 3, 33, 50, 40), (1, 2, 20, 9, 80),
 ])
 def test_flash_backward_kernels_match_plain(card, dtype, shape):
     q, k, v, do = _flash_inputs(card, shape, dtype)
@@ -134,6 +142,26 @@ def test_flash_backward_kernels_match_plain(card, dtype, shape):
     # each output row is written by one block: a second run is bitwise equal
     for g, g2 in zip(got, fa.flash_attention_bwd(q, k, v, do, lse, dvec)):
         assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_takes_any_do_layout(card, dtype):
+    """A `do` whose row stride breaks the TMA rules (41 elements) gives
+    the same gradients, bit for bit, as the same values laid out densely:
+    the wrapper copies it, and the kernels still run."""
+    q, k, v, do = _flash_inputs(card, (1, 2, 150, 190, 40), dtype)
+    o, lse = fa.flash_attention(q, k, v, want_lse=True)
+    dvec = (do.float() * o.float()).sum(-1)
+    wide = torch.zeros(*do.shape[:3], 41, dtype=dtype, device="cuda")
+    wide[..., :40] = do
+    odd = wide[..., :40]
+    assert odd.stride(2) == 41
+    n_dq = fa.DQ_KERNEL.launches
+    got = fa.flash_attention_bwd(q, k, v, odd, lse, dvec)
+    assert fa.DQ_KERNEL.launches == n_dq + 1
+    for g, w in zip(got, fa.flash_attention_bwd(q, k, v, do.contiguous(), lse, dvec)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda

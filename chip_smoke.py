@@ -9,7 +9,7 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    each kernel (registers, spills), and count the tensor-core
    instructions (HGMMA, HMMA) of each kernel in the built SASS
    (`cuobjdump -sass`); fail if the bf16 code of the flash forward (A),
-   of its dq or dk/dv backward, or of the 3x3 conv (B) has none;
+   of its dq or dk/dv backward, of the 3x3 conv (B) or of its dw has none;
 2. kernels: each kernel against its plain PyTorch version at the shapes
    the two main paths give it, in fp32 (TF32 off) and bf16, with its time,
    the plain version's, one PyTorch library call's, and its bound: the
@@ -35,12 +35,20 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    (scripts/sd15.sh): SD1.5 and BLIP-large at full width, bf16 towers and
    fp32 LoRA 128, 512^2, 4 prompts (CFG batch 8), total_step 50, K 5, lr
    5e-5, clip 0.1, 3 steps; finite loss and gradient norm, LoRA leaves
-   changed, the expected launch counts, seconds per step and its split.
+   changed, the expected launch counts, seconds per step and its split;
+7. train with the VAE trained (`tune_vae`): the recipe of phase 6 on its
+   pipeline, with a fresh `init_train_state(tune_vae=True)`: the bf16
+   decoder trains through fp32 masters, so the 21 gated decoder convs
+   launch the bf16 dw each step; 2 steps; finite loss and gradient norm,
+   every VAE and LoRA master changed, every bf16 working copy equal to
+   its master rounded, the expected launch counts (dw all bf16), seconds
+   per step, its split and peak memory.
 Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
-in the two main paths and, for dw, which the recipe's frozen VAE never
-runs, in phase 4's card run of the train step with the VAE trained. Weights are random (the real ones are not in the repository);
-depth is not cut.
+in the driven paths: generation, the recipe's train step, the same step
+with the VAE trained, and phase 4's fp32 card run of the train step with
+the VAE trained (dw). Weights are random (the real ones are not in the
+repository); depth is not cut.
 """
 
 from __future__ import annotations
@@ -84,11 +92,15 @@ MAIN_CONV_LAUNCHES = 21
 PARITY_FLASH_LAUNCHES = 10 * 2 + 1  # 256^2: 5 at S=1024 and 5 at S=256, x 2 + VAE
 PARITY_CONV_LAUNCHES = 14
 TRAIN_STEPS = 3
+TUNE_VAE_STEPS = 2
 # per train step at 512^2: flash forward in pass 1, in the K=5 replay
 # recomputes and in the decode; its backward in the replay and the decode;
 # the 21 gated decoder convs forward and dx; no dw (the VAE is frozen)
 TRAIN_LAUNCHES = {"flash_fwd": 750 + 75 + 1, "dq": 75 + 1, "dkv": 75 + 1,
                   "conv_fwd": 21, "conv_dx": 21, "dw": 0}
+# per step of phase 7 (the recipe with the VAE trained): the same, and the
+# bf16 dw of each of the 21 gated decoder convs
+TUNE_VAE_LAUNCHES = {**TRAIN_LAUNCHES, "dw": 21}
 # the train parity run at 256^2, total_step 4, K 2, VAE trained
 PARITY_TRAIN_LAUNCHES = {"flash_fwd": 10 * 4 + 10 * 2 + 1, "dq": 10 * 2 + 1,
                          "dkv": 10 * 2 + 1, "conv_fwd": 14, "conv_dx": 14, "dw": 14}
@@ -116,10 +128,11 @@ def gpu_name_and_power() -> str:
 
 
 # kernel functions whose SASS must hold tensor-core instructions: the
-# bf16 code of the flash forward (A), of its dq and dk/dv backward, and of
-# the 3x3 conv (B)
+# bf16 code of the flash forward (A), of its dq and dk/dv backward, of the
+# 3x3 conv (B) and of its dw
 TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
-                       "flash_bwd_dkv_bf16_kernel", "conv3x3_bf16_kernel")
+                       "flash_bwd_dkv_bf16_kernel", "conv3x3_bf16_kernel",
+                       "conv3x3_dw_bf16_kernel")
 
 
 def sass_tensor_core_counts(lib_path: str) -> dict:
@@ -639,7 +652,49 @@ def phase_main(torch, kernels):
     return by_shape
 
 
+def run_train_steps(torch, fa, cv, kernels, step, state, batch, gen, n_steps, what):
+    """`n_steps` train steps, every launch count set to 0 just before.
+    Returns (state, launches by role, launches by kernel and shape, peak
+    memory GiB, medians of steps 2-n)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    steps = []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        m["wall_s"] = time.perf_counter() - t0
+        steps.append(m)
+        log(f"  step {i + 1}: loss {m['step_loss']:.4f}, reward_blip "
+            f"{m['reward_blip']:.4f}, reward_norm {m['reward_norm']:.4e}, "
+            f"grad_norm {m['grad_norm']:.4e}; {m['wall_s']:.3f} s wall, "
+            f"device split: pass 1 {m['s_pass1']:.3f} s, pass 2 {m['s_pass2']:.3f} s, "
+            f"decode {m['s_decode']:.3f} s, reward {m['s_reward']:.3f} s, "
+            f"optimizer {m['s_optimizer']:.3f} s")
+    counts = counts_by_role(fa, cv)
+    by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    late = steps[1:]
+    median = {k: sorted(s[k] for s in late)[len(late) // 2] if len(late) % 2
+              else sum(s[k] for s in late) / len(late)
+              for k in ("wall_s", "s_pass1", "s_pass2", "s_decode", "s_reward",
+                        "s_optimizer")}
+    log(f"  {what} split (median of steps 2-{n_steps}): pass 1 "
+        f"{median['s_pass1']:.3f} s, pass 2 {median['s_pass2']:.3f} s, decode "
+        f"{median['s_decode']:.3f} s, reward {median['s_reward']:.3f} s, optimizer "
+        f"{median['s_optimizer']:.3f} s")
+    log(f"  {what}: {median['wall_s']:.3f} s per step (median of steps "
+        f"2-{n_steps}), peak memory {peak:.1f} GiB; launches {counts}")
+    for m in steps:
+        if not (math.isfinite(m["step_loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"non-finite {what} step: {m}")
+    return state, counts, by_shape, peak, median
+
+
 def phase_train_main(torch, fa, cv, kernels):
+    """The recipe's train steps. Returns (launches by kernel and shape,
+    medians, (pipeline, BLIP, batch)) for phase 7 to reuse."""
     from comat_tpu_torch.config import BLIPConfig
     from comat_tpu_torch.models.blip import make_blip
     from comat_tpu_torch.models.pipeline import DiffusionPipeline, make_pipeline_config
@@ -660,47 +715,57 @@ def phase_train_main(torch, fa, cv, kernels):
     log(f"  weights made in {time.perf_counter() - t0:.1f} s; "
         f"{len(before)} LoRA leaves, "
         f"{sum(p.numel() for p in before.values()) / 1e6:.1f} M parameters")
-    torch.cuda.reset_peak_memory_stats()
-    reset(kernels)
-    steps = []
-    for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, m = step(state, batch, generator=gen)
-        torch.cuda.synchronize()
-        m["wall_s"] = time.perf_counter() - t0
-        steps.append(m)
-        log(f"  step {i + 1}: loss {m['step_loss']:.4f}, reward_blip "
-            f"{m['reward_blip']:.4f}, reward_norm {m['reward_norm']:.4e}, "
-            f"grad_norm {m['grad_norm']:.4e}; {m['wall_s']:.3f} s wall, "
-            f"device split: pass 1 {m['s_pass1']:.3f} s, pass 2 {m['s_pass2']:.3f} s, "
-            f"decode {m['s_decode']:.3f} s, reward {m['s_reward']:.3f} s, "
-            f"optimizer {m['s_optimizer']:.3f} s")
-    counts = counts_by_role(fa, cv)
-    by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state, counts, by_shape, _, median = run_train_steps(
+        torch, fa, cv, kernels, step, state, batch, gen, TRAIN_STEPS, "train")
     changed = sum(not torch.equal(before[n], p.detach())
                   for n, p in state.trainable.items())
-    late = steps[1:]
-    median = {k: sorted(s[k] for s in late)[len(late) // 2] if len(late) % 2
-              else sum(s[k] for s in late) / len(late)
-              for k in ("wall_s", "s_pass1", "s_pass2", "s_decode", "s_reward",
-                        "s_optimizer")}
-    log(f"  train split (median of steps 2-{TRAIN_STEPS}): pass 1 "
-        f"{median['s_pass1']:.3f} s, pass 2 {median['s_pass2']:.3f} s, decode "
-        f"{median['s_decode']:.3f} s, reward {median['s_reward']:.3f} s, optimizer "
-        f"{median['s_optimizer']:.3f} s")
-    log(f"  train: {median['wall_s']:.3f} s per step (median of steps "
-        f"2-{TRAIN_STEPS}), peak memory {peak:.1f} GiB; {changed} of "
-        f"{len(before)} LoRA leaves changed; launches {counts}")
-    for m in steps:
-        if not (math.isfinite(m["step_loss"]) and math.isfinite(m["grad_norm"])):
-            raise AssertionError(f"non-finite train step: {m}")
+    log(f"  {changed} of {len(before)} LoRA leaves changed")
     if changed != len(before):
         raise AssertionError(f"only {changed} of {len(before)} LoRA leaves changed")
     want = {k: n * TRAIN_STEPS for k, n in TRAIN_LAUNCHES.items()}
     if counts != want:
         raise AssertionError(f"train main path launched {counts}, expected {want}")
-    return by_shape, median
+    return by_shape, median, (pipe, blip, batch)
+
+
+def phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch):
+    """Phase 6's recipe on its pipeline with the VAE trained: the bf16
+    decoder through fp32 masters (its stored weights upcast), every gated
+    decoder conv's dw in bf16. Returns (launches by kernel and shape,
+    medians, peak memory GiB)."""
+    from comat_tpu_torch.training import train_step as ts
+
+    tcfg = ts.TrainConfig()
+    state = ts.init_train_state(pipe, tcfg, tune_vae=True)
+    step = ts.make_train_step(pipe, blip, tcfg)
+    masters = state.optimizer.masters
+    before = {n: m.detach().clone() for n, m in masters.items()}
+    bf16 = [n for n, p in state.trainable.items() if p.dtype == torch.bfloat16]
+    n_vae = sum(n.startswith("vae.") for n in before)
+    log(f"  {len(before)} trainable leaves ({n_vae} VAE, {len(bf16)} bf16 with "
+        f"fp32 masters), {sum(m.numel() for m in before.values()) / 1e6:.1f} M "
+        f"parameters")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    state, counts, by_shape, peak, median = run_train_steps(
+        torch, fa, cv, kernels, step, state, batch, gen, TUNE_VAE_STEPS,
+        "train_tune_vae_bf16")
+    unchanged = [n for n, m in masters.items() if torch.equal(before[n], m)]
+    stale = [n for n in bf16
+             if not torch.equal(state.trainable[n].detach(), masters[n].bfloat16())]
+    moved = sum(not torch.equal(before[n].bfloat16(), state.trainable[n].detach())
+                for n in bf16)
+    dw_dtypes = {k[-1] for k in cv.DW_KERNEL.launches_by_shape}
+    log(f"  {len(masters) - len(unchanged)} of {len(masters)} masters changed; "
+        f"{moved} of {len(bf16)} bf16 working copies moved; dw dtypes {dw_dtypes}")
+    if unchanged:
+        raise AssertionError(f"{len(unchanged)} masters did not change: {unchanged[:5]}")
+    if stale or not bf16 or n_vae == 0:
+        raise AssertionError(f"bf16 working copies not their rounded masters: {stale[:5]}")
+    want = {k: n * TUNE_VAE_STEPS for k, n in TUNE_VAE_LAUNCHES.items()}
+    if counts != want or dw_dtypes != {"bfloat16"}:
+        raise AssertionError(f"tune_vae path launched {counts} (dw {dw_dtypes}), "
+                             f"expected {want}, bf16")
+    return by_shape, median, peak
 
 
 def main() -> int:
@@ -721,7 +786,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("[1/6] build")
+    log("[1/7] build")
     t0 = time.perf_counter()
     paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
@@ -734,27 +799,33 @@ def main() -> int:
     phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    log("[2/6] kernels against their plain versions")
+    log("[2/7] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/6] generation: SD1.5 fp32 256^2 card vs CPU")
+    log("[3/7] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    log("[4/6] train step: SD1.5 + BLIP-large fp32 256^2 card vs CPU")
+    log("[4/7] train step: SD1.5 + BLIP-large fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    log("[5/6] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    log("[5/7] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
     gen_shapes = phase_main(torch, kernels)
 
-    log("[6/6] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
-    train_shapes, _ = phase_train_main(torch, fa, cv, kernels)
+    log("[6/7] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    # launches: those of the three driven paths, each counted from 0 just
-    # before it: the generation and train main paths, and dw in the train
-    # step with the VAE trained (phase 4's card run)
+    log("[7/7] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
+    del pipe, blip
+
+    # launches: those of the driven paths, each counted from 0 just before
+    # it: generation, the recipe's train step, the same with the VAE
+    # trained (bf16), and dw in the fp32 train step with the VAE trained
+    # (phase 4's card run)
     paths = {"generate": gen_shapes, "train": train_shapes,
+             "train_tune_vae_bf16": tune_bf16_shapes,
              "train_tune_vae": {cv.DW_KERNEL.symbol: tune_vae_shapes[cv.DW_KERNEL.symbol]}}
     for e in entries:
         key = tuple(e.pop("key"))
@@ -785,8 +856,7 @@ def main() -> int:
                 f"library {total_ms['library_ms']:.1f}, bound {total_ms['bound_ms']:.2f})")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     # "kernels": the shapes the driven paths launched; "checks": the other
-    # comparisons (fp32, ragged keys, dw at the recipe's frozen-VAE
-    # shapes), with the same keys
+    # comparisons (fp32, ragged keys), with the same keys
     print(json.dumps({
         "kernels": [e for e in entries if e["launches"] > 0],
         "checks": [e for e in entries if e["launches"] == 0],

@@ -14,6 +14,7 @@ kernel on dy with the spatially flipped, io-transposed weights, as
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -31,10 +32,20 @@ DW_KERNEL = CudaKernel(
                                                    ctypes.c_void_p],
 )
 
-# dw splits the pixel sum so that about this many blocks fill the card
-# (two per SM of an H100), each summing at least DW_MIN_PIXELS pixels.
+# fp32 dw splits the pixel sum so that about this many blocks fill the
+# card (two per SM of an H100), each summing at least DW_MIN_PIXELS pixels.
 DW_TARGET_BLOCKS = 264
 DW_MIN_PIXELS = 2048
+# bf16 dw: one block per SM (DW_SMS on an H100), an output tile of 128 x
+# 256 products (`dw_tiles`), a pixel step of one image row by 64 columns.
+# Its split count weighs the
+# steps a block runs (at DW_SM_FLOPS a block) by the waves of DW_SMS
+# blocks, against the fp32 workspace it writes and reads back (at
+# DW_HBM_BYTES).
+DW_SMS = 132
+DW_SM_FLOPS = 5e12
+DW_HBM_BYTES = 3.35e12
+DW_MAX_SPLITS = 512
 
 
 def use_conv_kernel(x_shape, w_shape) -> bool:
@@ -144,13 +155,43 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor, role: str = "fwd") -> torch.Te
     return y
 
 
-def dw_splits(B: int, H: int, W: int, C: int, Cout: int):
-    """(splits, pixels per split) of the dw kernel's pixel sum."""
-    M = B * H * W
-    tiles = math.ceil(9 * C / 128) * math.ceil(Cout / 128)
-    splits = max(1, min(math.ceil(DW_TARGET_BLOCKS / tiles), M // DW_MIN_PIXELS))
-    per = math.ceil(M / splits / 8) * 8
-    return math.ceil(M / per), per
+def dw_tiles(C: int, Cout: int):
+    """(blocks a pixel split, (tap, channel) rows, output channels of a
+    block) of the bf16 dw kernel. The rows are row boxes of 64 channels of
+    one tap, 9 * ceil(C / 64) of them over the 9 taps. Where Cout % 256 ==
+    0 a block takes 2 boxes by 256 output channels, else 4 boxes by 128
+    output channels."""
+    boxes = 9 * math.ceil(C / 64)
+    if Cout % 256 == 0:
+        return math.ceil(boxes / 2) * (Cout // 256), 128, 256
+    return math.ceil(boxes / 4) * math.ceil(Cout / 128), 256, 128
+
+
+@functools.lru_cache(maxsize=None)
+def dw_splits(B: int, H: int, W: int, C: int, Cout: int, bf16: bool):
+    """(splits, units per split) of the dw kernel's pixel sum: pixels in
+    fp32; in bf16 steps of one image row by 64 columns, B*H*ceil(W/64) in
+    all, with the split count of the least modelled time (a search of
+    hundreds of candidates, so cached: it runs on the host before every
+    launch)."""
+    if not bf16:
+        M = B * H * W
+        tiles = math.ceil(9 * C / 128) * math.ceil(Cout / 128)
+        splits = max(1, min(math.ceil(DW_TARGET_BLOCKS / tiles), M // DW_MIN_PIXELS))
+        per = math.ceil(M / splits / 8) * 8
+        return math.ceil(M / per), per
+    tiles, rows, cols = dw_tiles(C, Cout)
+    steps = B * H * math.ceil(W / 64)
+    step_s = 2 * 64 * rows * cols / DW_SM_FLOPS
+    best = None
+    for want in range(1, min(steps, DW_MAX_SPLITS) + 1):
+        per = math.ceil(steps / want)
+        splits = math.ceil(steps / per)
+        cost = (math.ceil(tiles * splits / DW_SMS) * per * step_s
+                + 8 * splits * 9 * C * Cout / DW_HBM_BYTES)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1:]
 
 
 def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor,
@@ -158,7 +199,10 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor,
     """dw (3, 3, C, Cout) in `dtype` of the 3x3 SAME conv of x (B, H, W,
     C) for the output gradient dy (B, H, W, Cout). A CPU tensor gets the
     plain version; a CUDA tensor launches the dw kernel (x, dy contiguous,
-    one of fp32 or bf16, C a multiple of 8) or raises."""
+    one of fp32 or bf16, C a multiple of 8) or raises. The bf16 kernel
+    reads x and dy through TMA tensor maps (16-byte aligned rows): a bf16
+    Cout that is not a multiple of 8 is zero-padded in dy and sliced off
+    dw."""
     if x.device.type == "cpu":
         return conv3x3_dw_ref(x, dy, dtype)
     if x.dim() != 4 or dy.shape[:3] != x.shape[:3]:
@@ -171,12 +215,15 @@ def conv3x3_dw(x: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"conv3x3_dw writes dw in x's dtype {x.dtype}, not {dtype}")
     B, H, W, C = x.shape
     Cout = dy.shape[3]
-    splits, per = dw_splits(B, H, W, C, Cout)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and Cout % 8:
+        return conv3x3_dw(x, F.pad(dy, (0, -Cout % 8)), dtype)[..., :Cout].contiguous()
+    splits, per = dw_splits(B, H, W, C, Cout, bf16)
     dw = torch.empty(3, 3, C, Cout, dtype=x.dtype, device=x.device)
     work = torch.empty(splits, 9 * C * Cout, dtype=torch.float32, device=x.device)
     DW_KERNEL.launch(
         x.data_ptr(), dy.data_ptr(), dw.data_ptr(), work.data_ptr(),
-        int(x.dtype == torch.bfloat16), B, H, W, C, Cout, splits, per,
+        int(bf16), B, H, W, C, Cout, splits, per,
         shape=(B, H, W, C, Cout, _dtype_name(x.dtype)),
     )
     return dw

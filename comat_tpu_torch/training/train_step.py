@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -98,9 +98,10 @@ def partition_params(
     and the VAE decoder or the text encoder with the flags of the same
     names. Every other parameter is set frozen (`requires_grad` off).
 
-    A trainable tensor is its own master weight, so outside the (fp32)
-    LoRA factors it must be fp32: a bf16 tower raises, as the fp32 masters
-    that JAX keeps for it are not ported yet."""
+    A tensor of a bf16 tower stays bf16 here, the module's working copy;
+    the optimizer keeps its fp32 master (`ClippedAdamW`). JAX's
+    `tune_vae` also trains the VAE encoder, which the port does not have
+    (ROADMAP Queue 3)."""
     marks = [
         (f"{tower}.{name}", p, is_lora_path(name)
          or (tune_vae and tower == "vae")
@@ -109,12 +110,6 @@ def partition_params(
                               ("vae", pipeline.vae))
         for name, p in module.named_parameters()
     ]
-    for name, p, train in marks:
-        if train and not is_lora_path(name) and p.dtype != torch.float32:
-            raise NotImplementedError(
-                f"training {name} in {p.dtype}: fp32 master weights of a bf16 "
-                "tower are not ported yet, ROADMAP Queue 1 item 6 (fp32 masters "
-                "for tune_vae / tune_text_encoder)")
     for _, p, train in marks:
         p.requires_grad_(train)
     return {name: p for name, p, train in marks if train}
@@ -125,6 +120,21 @@ class ClippedAdamW:
     tensors, with a second AdamW group for the text encoder's tensors when
     `textenc_lr` is set (the clip stays joint, as in JAX).
 
+    The clip and AdamW act on fp32 master weights, `masters` by name. An
+    fp32 tensor (the LoRA factors, the VAE's fp32 `conv_out`) is its own
+    master. A bf16 tensor is the module's working copy of an fp32 master:
+    taken from `initial_masters` where it names the tensor (the fp32
+    values the weights were rounded from), else the tensor upcast. Its
+    bf16 gradient is cast to fp32 for the clip and AdamW, and after each
+    step the master, rounded to bf16, is written into the working copy.
+    That is the arithmetic of JAX's fp32 Flax parameter under a bf16
+    module: the module casts the fp32 leaf to bf16 (the working copy),
+    the cast's VJP turns the bf16 cotangent into an fp32 gradient, optax
+    updates the fp32 leaf, and the next forward casts it again. One
+    difference: where a step uses a tensor twice (the text encoder runs
+    on the prompts and on the null prompts), autograd sums the two bf16
+    cotangents in bf16, JAX in fp32 after the casts.
+
     The clip is written as optax writes it: gradients are left as they are
     when their global norm is below `max_norm`, else divided by the norm
     and multiplied by `max_norm` (no epsilon, unlike
@@ -134,11 +144,26 @@ class ClippedAdamW:
     (bias-corrected moments, eps outside the square root, decoupled weight
     decay scaled by the learning rate)."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig):
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig,
+                 initial_masters: Optional[Mapping[str, torch.Tensor]] = None):
         self.params = params
         self.max_norm = cfg.max_grad_norm
-        main = [p for n, p in params.items() if not n.startswith("text.")]
-        text = [p for n, p in params.items() if n.startswith("text.")]
+        initial_masters = initial_masters or {}
+        self.masters: Dict[str, torch.Tensor] = {}
+        with torch.no_grad():
+            for name, p in params.items():
+                if p.dtype == torch.float32:
+                    self.masters[name] = p
+                    continue
+                src = initial_masters.get(name, p)
+                if tuple(src.shape) != tuple(p.shape):
+                    raise ValueError(f"master of {name}: shape {tuple(src.shape)}, "
+                                     f"tensor {tuple(p.shape)}")
+                master = src.detach().to(p.device, torch.float32, copy=True)
+                p.copy_(master)
+                self.masters[name] = master
+        main = [m for n, m in self.masters.items() if not n.startswith("text.")]
+        text = [m for n, m in self.masters.items() if n.startswith("text.")]
         groups = [{"params": main}]
         if text:
             groups.append({"params": text, "lr": cfg.textenc_lr
@@ -150,33 +175,45 @@ class ClippedAdamW:
         )
 
     def zero_grad(self) -> None:
-        for p in self.params.values():
+        for name, p in self.params.items():
             p.grad = None
+            self.masters[name].grad = None
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """Clip and apply the gradients in `.grad`; returns their global
-        norm before the clip (a 0-dim fp32 tensor)."""
-        for p in self.params.values():
-            if p.grad is None:
+        norm before the clip (a 0-dim fp32 tensor). The working copies'
+        own `.grad` are left as the backward wrote them."""
+        for name, p in self.params.items():
+            master = self.masters[name]
+            if master is not p:
+                master.grad = (p.grad.float() if p.grad is not None
+                               else torch.zeros_like(master))
+            elif p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params.values()]
-        norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+        grads = [m.grad for m in self.masters.values()]
+        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         if float(norm) >= self.max_norm:
             for g in grads:
                 g.div_(norm).mul_(self.max_norm)
         self.adam.step()
+        for name, p in self.params.items():
+            if self.masters[name] is not p:
+                p.copy_(self.masters[name])
         return norm
 
 
-def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor]) -> ClippedAdamW:
+def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
+                   initial_masters: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> ClippedAdamW:
     _check_ported(cfg)
-    return ClippedAdamW(params, cfg)
+    return ClippedAdamW(params, cfg, initial_masters)
 
 
 class TrainState(NamedTuple):
     """What one step changes: the step count, the trainable tensors (in
-    place) and the optimizer holding their moments."""
+    place) and the optimizer holding their fp32 masters
+    (`optimizer.masters`) and moments."""
 
     step: int
     trainable: Dict[str, torch.nn.Parameter]
@@ -186,9 +223,15 @@ class TrainState(NamedTuple):
 def init_train_state(
     pipeline: DiffusionPipeline, cfg: TrainConfig, tune_vae: bool = False,
     tune_text_encoder: bool = False,
+    initial_masters: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> TrainState:
+    """`initial_masters`: fp32 tensors by trainable name ("vae.<name>",
+    "text.<name>") that a bf16 tower's weights were rounded from, for a
+    pipeline built from a JAX tree the tensors of
+    `weights.from_jax_params` under their tower's prefix; without them the
+    masters are the stored weights upcast (`ClippedAdamW`)."""
     trainable = partition_params(pipeline, tune_vae, tune_text_encoder)
-    return TrainState(0, trainable, make_optimizer(cfg, trainable))
+    return TrainState(0, trainable, make_optimizer(cfg, trainable, initial_masters))
 
 
 class StepDraws(NamedTuple):

@@ -50,6 +50,33 @@ def test_dx_dw_match_pallas_interpret(shape):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_dx_dw_round_where_pallas_rounds(shape):
+    """bf16 x, w and dy: JAX's `_vjp_bwd`, its Pallas kernels in interpret
+    mode, sums the products of the bf16 operands in fp32 and rounds once,
+    to the input dtype for dx and to w's for dw (`_conv_dw_kernel`); the
+    port's Function on the CPU (its plain versions) rounds at the same
+    points. Sums in another order land on either side of a bf16 midpoint
+    now and then: at most 1 % of the outputs differ, each by at most one
+    bf16 step of its own value (2^-7 of its binade). Rounding a partial
+    sum (a strip of rows at a time), or summing in bf16, would move most
+    of them."""
+    x, w, dy = (torch.tensor(a).to(torch.bfloat16) for a in _inputs(*shape, seed=3))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jconv, *(jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+                                  for t in (x, w)))
+        want = vjp(jnp.asarray(dy.float().numpy(), dtype=jnp.bfloat16))
+    xt, wt = x.clone().requires_grad_(), w.clone().requires_grad_()
+    tconv.conv3x3_same(xt, wt).backward(dy)
+    for name, g, want_g in (("dx", xt.grad, want[0]), ("dw", wt.grad, want[1])):
+        assert g.dtype == torch.bfloat16 and want_g.dtype == jnp.bfloat16, name
+        got, ref = g.float().numpy(), np.asarray(want_g.astype(jnp.float32))
+        diff = np.abs(got - ref)
+        step = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
+        assert (diff <= step).all(), (name, float((diff / step).max()))
+        assert np.mean(diff > 0) <= 0.01, (name, float(np.mean(diff > 0)))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
 def test_function_matches_plain_autograd(shape):
     x, w, dy = _inputs(*shape, seed=1)
     got = _port_grads(tconv.conv3x3_same, x, w, dy)

@@ -191,6 +191,59 @@ def test_conv_backward_kernels_match_plain(card, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    # (B, H, W, C, Cout): ragged rows of the 64-column pixel step (W = 100,
+    # 50, 130, 9, 70), C and Cout multiples of 8 but not of the 64-channel
+    # box or the 128/256-column tile (136, 200, 264), Cout % 8 != 0 (padded
+    # in dy), B > 1, a split pixel sum (4 x 128^2); both operand roles
+    # (Cout % 256 == 0: x rows by 256 output channels, else 128 output
+    # channels by x rows), an odd count of row boxes (C = 64: 9) and two
+    # output-channel blocks (Cout = 512)
+    (1, 100, 100, 136, 136), (2, 37, 50, 8, 16), (3, 65, 130, 128, 264),
+    (2, 33, 9, 136, 264), (1, 40, 40, 16, 20), (4, 128, 128, 128, 128),
+    (2, 64, 64, 256, 256), (2, 30, 70, 64, 256), (1, 24, 130, 200, 512),
+])
+def test_dw_bf16_kernel_matches_plain(card, shape):
+    B, H, W, C, Cout = shape
+    x = torch.randn(B, H, W, C, generator=card, device="cuda").to(torch.bfloat16)
+    dy = (torch.randn(B, H, W, Cout, generator=card, device="cuda")
+          / math.sqrt(B * H * W)).to(torch.bfloat16)
+    n_dw = cv.DW_KERNEL.launches
+    dw = cv.conv3x3_dw(x, dy, torch.bfloat16)
+    assert cv.DW_KERNEL.launches == n_dw + 1
+    assert dw.shape == (3, 3, C, Cout) and dw.dtype == torch.bfloat16
+    _assert_close(dw, cv.conv3x3_dw_ref(x, dy, torch.bfloat16), torch.bfloat16)
+    # a fixed-order reduction of the pixel splits: a second run is bitwise equal
+    assert torch.equal(dw, cv.conv3x3_dw(x, dy, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_conv_module_trains_a_bf16_weight(card):
+    """The Conv3x3 module in bf16 with a trainable weight, at a shape that
+    passes the kernel gate: its backward launches dx and dw, and the
+    weight and bias gradients match the plain vjp."""
+    from comat_tpu_torch.models.conv import Conv3x3
+
+    torch.manual_seed(0)
+    mod = Conv3x3(128, 136, dtype=torch.bfloat16, device="cuda").requires_grad_(True)
+    x = torch.randn(2, 128, 128, 128, generator=card, device="cuda").to(
+        torch.bfloat16).to(memory_format=torch.channels_last)
+    dy = (torch.randn(2, 136, 128, 128, generator=card, device="cuda")
+          / 128).to(torch.bfloat16)
+    n_fwd, n_dw = cv.KERNEL.launches, cv.DW_KERNEL.launches
+    y = mod(x)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    assert (cv.KERNEL.launches, cv.DW_KERNEL.launches) == (n_fwd + 1, n_dw + 1)
+    assert mod.weight.grad.dtype == torch.bfloat16
+    x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+    dy_nhwc = dy.permute(0, 2, 3, 1).contiguous()
+    want = cv.conv3x3_dw_ref(x_nhwc, dy_nhwc, torch.bfloat16).permute(3, 2, 0, 1)
+    _assert_close(mod.weight.grad, want, torch.bfloat16)
+    _assert_close(mod.bias.grad, dy.float().sum((0, 2, 3)), torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_kernel_outputs_carry_grad_fn(card):
     """A kernel's output records its backward when an input requires
     grad; the frozen-weight conv skips dw."""

@@ -278,22 +278,6 @@ def test_partition_params_marks_the_trainable_tensors():
     assert len(vae) == len(list(pipe.vae.parameters())) and set(lora) < set(both)
 
 
-@pytest.mark.parametrize("tower", ["vae", "text"])
-def test_training_a_bf16_tower_raises(tower):
-    """Outside the fp32 LoRA factors a trainable tensor is its own master
-    weight; a bf16 one would round lr-sized steps away, so it raises until
-    fp32 masters are ported."""
-    cfg = tpipe.make_pipeline_config("sd_1_5", lora_rank=RANK, resolution=RES,
-                                     tiny=True)
-    cfg = dataclasses.replace(cfg, **{tower: dataclasses.replace(
-        getattr(cfg, tower), dtype=torch.bfloat16)})
-    pipe = tpipe.DiffusionPipeline(cfg, device="cpu")
-    flag = {"vae": "tune_vae", "text": "tune_text_encoder"}[tower]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tts.partition_params(pipe, **{flag: True})
-    assert tts.partition_params(pipe)      # the LoRA factors alone still train
-
-
 def test_presampled_forward_repeats_forward():
     """Pass 1 run apart (`presample`) and handed to `forward` gives the
     latents, image and LoRA gradients of `forward` running it itself."""

@@ -20,13 +20,15 @@ Phases; any failure ends the run with a nonzero exit and no result line:
 3. generation parity: SD1.5 at full width, fp32, 256^2, 1 prompt, 2 DDPM
    steps, the same seeded weights and injected noise on the card and on
    this machine's CPU; images within 1e-3;
-4. train parity: the CoMat train step's loss and gradients, SD1.5 and
-   BLIP-large at full width, fp32, 256^2, 1 prompt, total_step 4, K 2,
-   LoRA 128 with nonzero lora_b, the VAE trained too (so dw runs), the same
-   weights and draws on the card and the CPU; loss within 1e-3, every LoRA
-   and VAE gradient leaf within 1e-3 relative (a leaf whose CPU gradient
-   is below 1e-6 of the largest, zero in exact arithmetic, within 1e-5 of
-   the largest gradient instead);
+4. train parity: the full CoMat train step's loss and gradients (the BLIP
+   reward, the latent GAN with its D update, attribute concentration with
+   CenterPrior masks), SD1.5 and BLIP-large at full width, fp32, 256^2,
+   1 prompt, total_step 4, K 2, A 2, LoRA 128 with nonzero lora_b in G and
+   in D (D's base G's UNet, its head the mlp), the VAE trained too (so dw
+   runs), the same weights and draws on the card and the CPU; the loss and
+   each component within 1e-3, every LoRA, VAE and D gradient leaf within
+   1e-3 relative (a leaf whose CPU gradient is below 1e-6 of the largest,
+   zero in exact arithmetic, within 1e-5 of the largest gradient instead);
 5. generation main path: `comat_tpu_torch.tools.generate.main` at SD1.5
    full width, 512^2, bf16, 2 prompts, 50 DDPM steps, CFG 7.5, seeded
    weights, the hash tokenizer at vocab 49408; finite (2, 512, 512, 3)
@@ -42,13 +44,21 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    launch the bf16 dw each step; 2 steps; finite loss and gradient norm,
    every VAE and LoRA master changed, every bf16 working copy equal to
    its master rounded, the expected launch counts (dw all bf16), seconds
-   per step, its split and peak memory.
+   per step, its split and peak memory;
+8. the full recipe (scripts/sd15.sh with --gan_loss and attribute
+   concentration) on phase 6's pipeline and BLIP: D an SD1.5 UNet with
+   LoRA 128 and the mlp head sharing G's base, its optimizer sd15.sh's
+   (lr 2e-5, b1 0, clip 1), seeded gt_latents, CenterPrior masks, A 2;
+   3 steps; every loss component finite, every LoRA, D LoRA and head
+   leaf moved, the launch counts of each kernel by role (pass 1, replay,
+   capture, decode, D forward, D backward) as expected, seconds per step,
+   its split (CUDA events) and peak memory.
 Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
-in the driven paths: generation, the recipe's train step, the same step
-with the VAE trained, and phase 4's fp32 card run of the train step with
-the VAE trained (dw). Weights are random (the real ones are not in the
-repository); depth is not cut.
+in the driven paths: generation, the reduced recipe's train step, the
+same step with the VAE trained, phase 4's fp32 card run of the train step
+with the VAE trained (dw), and the full recipe's step. Weights are random
+(the real ones are not in the repository); depth is not cut.
 """
 
 from __future__ import annotations
@@ -74,6 +84,10 @@ GEN_FLASH = [(4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80),
 TRAIN_FLASH = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
                (8, 8, 256, 256, 160), (4, 1, 4096, 4096, 512)]
 RAGGED_FLASH = (1, 8, 1000, 1100, 80)
+# the flash backward at batch 4 (B*H = 32): the full recipe's D backward
+# for the G loss and its capture backward, both at the prompt batch
+HALF_BATCH_FLASH = [(4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80),
+                    (4, 8, 256, 256, 160)]
 # (H, C, Cout): the 21 gated convs of the 512^2 decoder, 7 distinct shapes
 DECODER_CONVS = [(128, 512, 512), (256, 512, 512), (256, 512, 256),
                  (256, 256, 256), (512, 256, 256), (512, 256, 128),
@@ -93,6 +107,28 @@ PARITY_FLASH_LAUNCHES = 10 * 2 + 1  # 256^2: 5 at S=1024 and 5 at S=256, x 2 + V
 PARITY_CONV_LAUNCHES = 14
 TRAIN_STEPS = 3
 TUNE_VAE_STEPS = 2
+FULL_STEPS = 3
+# per step of the full recipe (phase 8), by role (segments of the step's
+# PhaseClock): 15 self-attentions over >128 keys a UNet call; the capture
+# runs 2 cond-half forwards and recomputes both in its backward; D runs
+# once at batch 4 for the G loss (backward into the latents) and once at
+# batch 8 for its update (backward into its LoRA)
+FULL_ROLES = {
+    "pass1": ("pass1",),
+    "replay": ("replay_fwd", "replay_bwd"),
+    "capture": ("capture_fwd", "capture_bwd"),
+    "decode": ("decode_fwd", "decode_bwd"),
+    "d_forward": ("gan_fwd", "d_fwd"),
+    "d_backward": ("gan_bwd", "d_bwd"),
+}
+FULL_LAUNCHES = {
+    "pass1": {"flash_fwd": 750},
+    "replay": {"flash_fwd": 75, "dq": 75, "dkv": 75},
+    "capture": {"flash_fwd": 60, "dq": 30, "dkv": 30},
+    "decode": {"flash_fwd": 1, "dq": 1, "dkv": 1, "conv_fwd": 21, "conv_dx": 21},
+    "d_forward": {"flash_fwd": 30},
+    "d_backward": {"dq": 30, "dkv": 30},
+}
 # per train step at 512^2: flash forward in pass 1, in the K=5 replay
 # recomputes and in the decode; its backward in the replay and the decode;
 # the 21 gated decoder convs forward and dx; no dw (the VAE is frozen)
@@ -101,9 +137,18 @@ TRAIN_LAUNCHES = {"flash_fwd": 750 + 75 + 1, "dq": 75 + 1, "dkv": 75 + 1,
 # per step of phase 7 (the recipe with the VAE trained): the same, and the
 # bf16 dw of each of the 21 gated decoder convs
 TUNE_VAE_LAUNCHES = {**TRAIN_LAUNCHES, "dw": 21}
-# the train parity run at 256^2, total_step 4, K 2, VAE trained
-PARITY_TRAIN_LAUNCHES = {"flash_fwd": 10 * 4 + 10 * 2 + 1, "dq": 10 * 2 + 1,
-                         "dkv": 10 * 2 + 1, "conv_fwd": 14, "conv_dx": 14, "dw": 14}
+# the train parity run at 256^2, total_step 4, K 2, A 2, VAE trained, GAN
+# and attribute concentration on: 10 self-attentions over >128 keys a UNet
+# call; forward in pass 1 (4), the replay recomputes (2), the capture
+# forwards and their recomputes (2 + 2), D for the G loss and D's update
+# (1 + 1), and the decode; backward in the replay, the capture, D twice
+# and the decode
+PARITY_TRAIN_LAUNCHES = {"flash_fwd": 10 * (4 + 2 + 4 + 2) + 1,
+                         "dq": 10 * (2 + 2 + 2) + 1, "dkv": 10 * (2 + 2 + 2) + 1,
+                         "conv_fwd": 14, "conv_dx": 14, "dw": 14}
+# the capture layers at 256^2, the counterparts of SD1.5's list at 512^2
+# (as the JAX package's real-geometry fixture sets them)
+PARITY_CAPTURE = ("mid_4", "up_8", "up_16", "up_32")
 GRAD_TOL = 1e-3   # relative, per leaf, as tools/step_loss_fixture.py measures it
 LOSS_TOL = 1e-3
 # A leaf whose CPU gradient stays below ZERO_LEAF_REL of the largest
@@ -431,7 +476,8 @@ def phase_kernels(torch, fa, cv):
             entries += check_flash_fwd(torch, fa, gen, shape, dtype)
             _log_entry(entries[-1])
             torch.cuda.empty_cache()
-        for shape in TRAIN_FLASH + [RAGGED_FLASH]:
+        half = HALF_BATCH_FLASH if dtype == "bfloat16" else []
+        for shape in TRAIN_FLASH + half + [RAGGED_FLASH]:
             entries += check_flash_bwd(torch, fa, gen, shape, dtype)
             _log_entry(entries[-2])
             _log_entry(entries[-1])
@@ -540,48 +586,96 @@ def _train_batch(prompts, clip_vocab, blip_vocab):
             "caption_mask": cap["attention_mask"], "caption_labels": cap["labels"]}
 
 
+def _attrcon_fields(prompts, clip_vocab, resolution):
+    """The batch fields of attribute concentration: token groups and
+    CenterPrior masks (uint8, (B, 8, resolution, resolution))."""
+    from comat_tpu_torch.segmentation.interface import CenterPriorSegmenter, SegmenterHolder
+    from comat_tpu_torch.text.tokenizer import HashTokenizer
+    from comat_tpu_torch.training.attrcon import attrcon_batch_fields
+
+    holder = SegmenterHolder(CenterPriorSegmenter())
+    fields = attrcon_batch_fields(prompts, HashTokenizer(clip_vocab), holder, 77,
+                                  resolution=resolution)
+    return holder, fields
+
+
+def _nonzero_lora_b(torch, module, gen) -> None:
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+
+
+def _d_own(disc):
+    """D's own tensors (its LoRA and head), not the base it shares."""
+    return {n: v for n, v in disc.state_dict().items()
+            if "lora_" in n or n.startswith("head.")}
+
+
 def phase_train_parity(torch, fa, cv, kernels):
-    """One make_loss_fn value and backward on the card and on the CPU."""
+    """One make_loss_fn value and backward, then D's loss and backward at
+    its latents (what the step's D update differentiates), on the card and
+    on the CPU."""
     from comat_tpu_torch.config import BLIPConfig
+    from comat_tpu_torch.diffusion.schedulers import inference_timesteps
+    from comat_tpu_torch.losses.gan import Discriminator, GanConfig, gan_d_loss
     from comat_tpu_torch.models.blip import make_blip
     from comat_tpu_torch.models.pipeline import DiffusionPipeline
     from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.attrcon import make_attrcon_extra_losses
 
-    cfg = fp32_config("sd_1_5", 256, lora_rank=128)
+    cfg = dataclasses.replace(fp32_config("sd_1_5_attrcon", 256, lora_rank=128),
+                              capture_layers=PARITY_CAPTURE)
     bcfg = dataclasses.replace(BLIPConfig.large(), dtype=torch.float32)
-    tcfg = ts.TrainConfig(total_step=4, K=2, resolution=256)
+    tcfg = ts.TrainConfig(total_step=4, K=2, resolution=256, gan_loss=True, attrcon=True)
+    gan_cfg = GanConfig(lora_rank=128)
     t0 = time.perf_counter()
     cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
     g = torch.Generator().manual_seed(SEED + 11)
-    with torch.no_grad():
-        for name, p in cpu.unet.named_parameters():
-            if name.endswith("lora_b"):
-                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+    _nonzero_lora_b(torch, cpu.unet, g)
+    d_cpu = Discriminator(cfg.unet, gan_cfg, device="cpu", base_unet=cpu.unet, seed=SEED + 7)
+    _nonzero_lora_b(torch, d_cpu, g)
     gpu = DiffusionPipeline(cfg, device="cuda", params=cpu.state_dicts())
+    d_gpu = Discriminator(cfg.unet, gan_cfg, device="cuda", base_unet=gpu.unet)
+    d_gpu.load_state_dict(_d_own(d_cpu), strict=False)
     blip_cpu = make_blip(bcfg, device="cpu", seed=SEED + 1)
     blip_gpu = make_blip(bcfg, device="cuda", params=blip_cpu.state_dict())
     log(f"  weights made in {time.perf_counter() - t0:.1f} s")
-    batch = _train_batch(TRAIN_PROMPTS[:1], cfg.text.vocab_size, bcfg.vocab_size)
+    prompts = TRAIN_PROMPTS[:1]
+    batch = _train_batch(prompts, cfg.text.vocab_size, bcfg.vocab_size)
+    holder, fields = _attrcon_fields(prompts, cfg.text.vocab_size, 256)
+    batch.update(fields)
+    gt = torch.randn(1, 32, 32, 4, generator=torch.Generator().manual_seed(SEED + 9))
     draws = ts.sample_draws(tcfg, 1, cfg.latent_size,
                             torch.Generator().manual_seed(SEED + 3))
-    log(f"  draws: start {draws.start}, crop {draws.crop}")
+    t_final = int(inference_timesteps(tcfg.total_step)[-1])
+    log(f"  draws: start {draws.start}, crop {draws.crop}, attrcon "
+        f"{draws.attrcon_draws}; {int(fields['word_valid'].sum())} words")
 
-    def run(pipe, blip):
+    def run(pipe, blip, disc):
         trainable = ts.partition_params(pipe, tune_vae=True)
+        d_trainable = ts.partition_disc_params(disc)
         dev = pipe.device
-        d = ts.StepDraws(draws.latents0.to(dev), draws.step_noise.to(dev),
-                         draws.start, draws.crop)
-        loss, (metrics, _) = ts.make_loss_fn(pipe, blip, tcfg)(batch, d)
+        d = draws._replace(latents0=draws.latents0.to(dev),
+                           step_noise=draws.step_noise.to(dev))
+        extra = make_attrcon_extra_losses(pipe, holder, tcfg)
+        loss, (metrics, latents) = ts.make_loss_fn(pipe, blip, tcfg, extra, disc)(batch, d)
         loss.backward()
-        return float(loss), {n: p.grad.detach().cpu() for n, p in trainable.items()}
+        null = pipe.encode_prompt(batch["null_ids"]).context
+        d_loss = gan_d_loss(disc, latents, gt.to(dev), t_final, null)
+        d_loss.backward()
+        metrics["D_loss"] = d_loss.detach()
+        grads = {n: p.grad.detach().cpu() for n, p in trainable.items()}
+        grads.update({f"disc.{n}": p.grad.detach().cpu() for n, p in d_trainable.items()})
+        return {k: float(v) for k, v in metrics.items()}, grads
 
     t0 = time.perf_counter()
-    loss_cpu, grads_cpu = run(cpu, blip_cpu)
+    metrics_cpu, grads_cpu = run(cpu, blip_cpu, d_cpu)
     t_cpu = time.perf_counter() - t0
-    del cpu, blip_cpu
+    del cpu, blip_cpu, d_cpu
     reset(kernels)
     t0 = time.perf_counter()
-    loss_gpu, grads_gpu = run(gpu, blip_gpu)
+    metrics_gpu, grads_gpu = run(gpu, blip_gpu, d_gpu)
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     counts = counts_by_role(fa, cv)
@@ -597,17 +691,24 @@ def phase_train_parity(torch, fa, cv, kernels):
             rels[name] = float((gg - gc).abs().max()) / max(peak, 1e-12)
     worst_name = max(rels, key=rels.get)
     worst = rels[worst_name]
-    n_lora = sum("lora_" in n for n in grads_cpu)
-    log(f"  loss card {loss_gpu:.6f}, CPU {loss_cpu:.6f}, |diff| "
-        f"{abs(loss_gpu - loss_cpu):.3e}; {len(grads_cpu)} gradient leaves "
-        f"({n_lora} LoRA, {len(grads_cpu) - n_lora} VAE), worst relative "
+    n_lora = sum("lora_" in n and not n.startswith("disc.") for n in grads_cpu)
+    n_disc = sum(n.startswith("disc.") for n in grads_cpu)
+    diffs = {k: abs(metrics_gpu[k] - metrics_cpu[k]) for k in metrics_cpu}
+    log(f"  card {metrics_gpu}")
+    log(f"  CPU  {metrics_cpu}")
+    log(f"  |card - CPU| {diffs}; {len(grads_cpu)} gradient leaves ({n_lora} LoRA, "
+        f"{n_disc} D, {len(grads_cpu) - n_lora - n_disc} VAE), worst relative "
         f"{worst:.3e} at {worst_name} (cpu {t_cpu:.1f} s, card {t_gpu:.1f} s)")
-    lora_worst = max(r for n, r in rels.items() if "lora_" in n)
-    log(f"  worst LoRA leaf {lora_worst:.3e}; zero-gradient leaves, largest "
-        f"|g| over the largest gradient: {zero_leaves}")
+    lora_worst = max(r for n, r in rels.items() if "lora_" in n and not n.startswith("disc."))
+    d_worst = max((r for n, r in rels.items() if n.startswith("disc.")), default=0.0)
+    log(f"  worst LoRA leaf {lora_worst:.3e}, worst D leaf {d_worst:.3e}; zero-gradient "
+        f"leaves, largest |g| over the largest gradient: {zero_leaves}")
     log(f"  launches {counts}")
-    if not (math.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= LOSS_TOL):
-        raise AssertionError(f"train loss card {loss_gpu} vs CPU {loss_cpu}")
+    want_keys = {"step_loss", "reward_blip", "G_loss", "token_loss", "pixel_loss", "D_loss"}
+    if not want_keys <= set(metrics_gpu):
+        raise AssertionError(f"train parity metrics lack {want_keys - set(metrics_gpu)}")
+    if not all(math.isfinite(metrics_gpu[k]) and diffs[k] <= LOSS_TOL for k in want_keys):
+        raise AssertionError(f"train loss components card vs CPU differ: {diffs}")
     if not worst <= GRAD_TOL:
         raise AssertionError(f"gradient {worst_name} differs by {worst:.3e} relative")
     if not all(r <= ZERO_LEAF_TOL for r in zero_leaves.values()):
@@ -615,7 +716,7 @@ def phase_train_parity(torch, fa, cv, kernels):
     if counts != PARITY_TRAIN_LAUNCHES:
         raise AssertionError(f"train parity launched {counts}, "
                              f"expected {PARITY_TRAIN_LAUNCHES}")
-    del gpu, blip_gpu
+    del gpu, blip_gpu, d_gpu
     torch.cuda.empty_cache()
     return by_shape
 
@@ -768,6 +869,92 @@ def phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch):
     return by_shape, median, peak
 
 
+def phase_train_full(torch, fa, cv, kernels, pipe, blip, batch):
+    """The full recipe on phase 6's pipeline and BLIP: a fresh G state, D
+    sharing G's base, FULL_STEPS steps, each marked on a PhaseClock whose
+    probe reads the launch counters. Returns (launches by kernel and
+    shape, medians, peak memory GiB)."""
+    from comat_tpu_torch.losses.gan import Discriminator, GanConfig
+    from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.attrcon import make_attrcon_extra_losses
+
+    cfg = pipe.cfg
+    tcfg = ts.TrainConfig(gan_loss=True, attrcon=True)      # scripts/sd15.sh
+    disc = Discriminator(cfg.unet, GanConfig(lora_rank=128), device="cuda",
+                         base_unet=pipe.unet, seed=SEED + 7)
+    state = ts.init_train_state(pipe, tcfg)
+    d_state = ts.init_disc_state(disc, tcfg)
+    holder, fields = _attrcon_fields(TRAIN_PROMPTS, cfg.text.vocab_size, cfg.resolution)
+    batch = dict(batch, **{k: torch.from_numpy(v).cuda() for k, v in fields.items()})
+    batch["gt_latents"] = torch.randn(
+        TRAIN_BATCH, cfg.latent_size, cfg.latent_size, 4, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 9))
+    step = ts.make_train_step(pipe, blip, tcfg, make_attrcon_extra_losses(pipe, holder, tcfg),
+                              disc, d_state.optimizer)
+    before = {n: p.detach().clone() for n, p in state.trainable.items()}
+    d_before = {n: p.detach().clone() for n, p in d_state.trainable.items()}
+    shared = sum(p is q for p, q in zip(disc.unet.parameters(), pipe.unet.parameters()))
+    log(f"  {len(before)} LoRA leaves; D: {len(d_before)} trainable leaves "
+        f"({sum(p.numel() for p in d_before.values()) / 1e6:.1f} M parameters), "
+        f"{shared} base tensors shared with G; {int(fields['word_valid'].sum())} words")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    steps, roles = [], {role: {} for role in FULL_ROLES}
+    for i in range(FULL_STEPS):
+        clock = ts.PhaseClock(torch.device("cuda"), probe=lambda: counts_by_role(fa, cv))
+        t0 = time.perf_counter()
+        state, m = step(state, batch, generator=gen, clock=clock)
+        torch.cuda.synchronize()
+        m["wall_s"] = time.perf_counter() - t0
+        steps.append(m)
+        for role, segs in FULL_ROLES.items():
+            for seg in segs:
+                for k, n in clock.counts(*ts.SEGMENTS[seg]).items():
+                    roles[role][k] = roles[role].get(k, 0) + n
+        log(f"  step {i + 1}: loss {m['step_loss']:.4f}, reward_blip "
+            f"{m['reward_blip']:.4f}, G_loss {m['G_loss']:.4f}, token_loss "
+            f"{m['token_loss']:.4f}, pixel_loss {m['pixel_loss']:.4f}, D_loss "
+            f"{m['D_loss']:.4f}, grad_norm {m['grad_norm']:.4e}; {m['wall_s']:.3f} s "
+            f"wall; " + ", ".join(f"{k} {m[k]:.3f}" for k in ts.PHASES))
+    counts = counts_by_role(fa, cv)
+    by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    late = steps[1:]
+    median = {k: sorted(s[k] for s in late)[len(late) // 2] if len(late) % 2
+              else sum(s[k] for s in late) / len(late)
+              for k in ("wall_s", "s_step", *ts.PHASES)}
+    log(f"  train_full split (median of steps 2-{FULL_STEPS}): "
+        + ", ".join(f"{k} {median[k]:.3f} s" for k in ts.PHASES))
+    log(f"  train_full: {median['wall_s']:.3f} s per step (median of steps "
+        f"2-{FULL_STEPS}), peak memory {peak:.1f} GiB; launches {counts}")
+    for role, c in roles.items():
+        log(f"  launches by role, {FULL_STEPS} steps: {role} "
+            f"{ {k: n for k, n in c.items() if n} }")
+    keys = ("step_loss", "reward_blip", "G_loss", "token_loss", "pixel_loss",
+            "D_loss", "grad_norm")
+    for m in steps:
+        if not all(math.isfinite(m[k]) for k in keys):
+            raise AssertionError(f"non-finite full-recipe step: {m}")
+    still = [n for n, p in state.trainable.items() if torch.equal(before[n], p.detach())]
+    d_still = [n for n, p in d_state.trainable.items()
+               if torch.equal(d_before[n], p.detach())]
+    log(f"  {len(before) - len(still)} of {len(before)} LoRA leaves and "
+        f"{len(d_before) - len(d_still)} of {len(d_before)} D leaves changed")
+    if still or d_still:
+        raise AssertionError(f"leaves did not change: G {still[:5]}, D {d_still[:5]}")
+    want_roles = {role: {k: n * FULL_STEPS for k, n in c.items()}
+                  for role, c in FULL_LAUNCHES.items()}
+    got_roles = {role: {k: n for k, n in c.items() if n} for role, c in roles.items()}
+    want = {k: sum(c.get(k, 0) for c in want_roles.values()) for k in counts}
+    if counts != want or got_roles != want_roles:
+        raise AssertionError(f"full recipe launched {counts} ({got_roles}), "
+                             f"expected {want} ({want_roles})")
+    del disc, d_state
+    return by_shape, median, peak
+
+
 def main() -> int:
     import torch
 
@@ -786,7 +973,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("[1/7] build")
+    log("[1/8] build")
     t0 = time.perf_counter()
     paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
@@ -799,34 +986,38 @@ def main() -> int:
     phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    log("[2/7] kernels against their plain versions")
+    log("[2/8] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/7] generation: SD1.5 fp32 256^2 card vs CPU")
+    log("[3/8] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    log("[4/7] train step: SD1.5 + BLIP-large fp32 256^2 card vs CPU")
+    log("[4/8] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    log("[5/7] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    log("[5/8] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
     gen_shapes = phase_main(torch, kernels)
 
-    log("[6/7] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    log("[6/8] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
     train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    log("[7/7] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    log("[7/8] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
     tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
+
+    log("[8/8] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
+    full_shapes, _, _ = phase_train_full(torch, fa, cv, kernels, pipe, blip, batch)
     del pipe, blip
 
     # launches: those of the driven paths, each counted from 0 just before
-    # it: generation, the recipe's train step, the same with the VAE
-    # trained (bf16), and dw in the fp32 train step with the VAE trained
-    # (phase 4's card run)
+    # it: generation, the reduced recipe's train step, the same with the
+    # VAE trained (bf16), dw in the fp32 train step with the VAE trained
+    # (phase 4's card run), and the full recipe's step
     paths = {"generate": gen_shapes, "train": train_shapes,
              "train_tune_vae_bf16": tune_bf16_shapes,
-             "train_tune_vae": {cv.DW_KERNEL.symbol: tune_vae_shapes[cv.DW_KERNEL.symbol]}}
+             "train_tune_vae": {cv.DW_KERNEL.symbol: tune_vae_shapes[cv.DW_KERNEL.symbol]},
+             "train_full": full_shapes}
     for e in entries:
         key = tuple(e.pop("key"))
         for path, shapes in paths.items():

@@ -2,8 +2,8 @@
 generation) and pass 2, the differentiable CoMat replay.
 
 Port of comat_tpu/diffusion/sampler.py (`sample_inference`,
-`_make_cached_primal_eps`, `sample_comat`, `prepare_latents`), without
-attention capture. Latents keep the JAX layout (B, h, w, 4). Randomness
+`_make_cached_primal_eps`, `_make_capture_only`, `sample_comat`,
+`prepare_latents`). Latents keep the JAX layout (B, h, w, 4). Randomness
 comes from an explicit `torch.Generator`, or is injected as tensors
 (`latents0`, and `step_noise` of shape (S, B, h, w, 4)) so that a test can
 feed both ports the same draws. One noise table serves pass 1 and the
@@ -15,12 +15,16 @@ latent. Pass 2 replays the K segments from the first trained step on:
 each segment's UNet call is the cached-primal op (its forward returns
 pass 1's eps, its backward re-runs the differentiable UNet at the same
 point and returns the VJP), followed by `interval - 1` scheduler steps
-with the saved eps, which are affine in the latent.
+with the saved eps, which are affine in the latent. With capture
+(attribute concentration), A capture-only ops then run at the entry
+latents of the A chosen segments: each computes the cond-half
+cross-attention maps, and its backward re-runs that forward with
+gradients on.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,6 +36,7 @@ from comat_tpu_torch.diffusion.schedulers import (
 
 class SampleResult(NamedTuple):
     latents: torch.Tensor       # (B, h, w, 4) final, differentiable
+    captured: Dict[str, List[torch.Tensor]]  # key -> [(A, B, heads, HW, 77)]
     eps_table: torch.Tensor     # (S, B, h, w, 4) guided eps of pass 1
     latents_traj: torch.Tensor  # (S, B, h, w, 4) pass-1 step inputs
 
@@ -85,17 +90,18 @@ class _CachedPrimalEps(torch.autograd.Function):
     through autograd."""
 
     @staticmethod
-    def forward(ctx, diff_eps_model, t, x, cached_eps, context, null_context,
-                *params):
-        ctx.diff_eps_model, ctx.t = diff_eps_model, t
+    def forward(ctx, diff_eps_model, t, mark, x, cached_eps, context,
+                null_context, *params):
+        ctx.diff_eps_model, ctx.t, ctx.mark = diff_eps_model, t, mark
         ctx.save_for_backward(x, context, null_context, *params)
         return cached_eps.clone()
 
     @staticmethod
     def backward(ctx, g):
         x, context, null_context, *params = ctx.saved_tensors
-        need_x, need_c, need_n = ctx.needs_input_grad[2], *ctx.needs_input_grad[4:6]
-        need_p = ctx.needs_input_grad[6:]
+        need_x, need_c, need_n = ctx.needs_input_grad[3], *ctx.needs_input_grad[5:7]
+        need_p = ctx.needs_input_grad[7:]
+        ctx.mark("replay_bwd<")
         with torch.enable_grad():
             xs = x.detach().requires_grad_(need_x)
             c = context.detach().requires_grad_(need_c)
@@ -107,7 +113,53 @@ class _CachedPrimalEps(torch.autograd.Function):
             picked = [w for w, k in zip(wrt, need) if k]
             grads = iter(torch.autograd.grad(eps, picked, g, allow_unused=True))
         out = [next(grads) if k else None for k in need]
-        return (None, None, out[0], None, out[1], out[2], *out[3:])
+        ctx.mark("replay_bwd>")
+        return (None, None, None, out[0], None, out[1], out[2], *out[3:])
+
+
+class _CaptureOnly(torch.autograd.Function):
+    """The captured maps at one attribute-concentration segment, as
+    `_make_capture_only`.
+
+    forward(capture_primal, t, mark, layout, x, context, *params) runs
+    `capture_primal(x, t, context)` -> {key: [maps]} (the cond-half
+    capture forward, batch B, no guidance) without gradients and returns
+    its maps flattened in key order; `layout` receives the (key, count)
+    pairs to rebuild the dict. backward re-runs the same forward with
+    gradients on and returns its VJP into x, the context and `params`,
+    where autograd asks for them. Nothing is kept across calls but the
+    inputs: the backward recomputes its own residuals."""
+
+    @staticmethod
+    def forward(ctx, capture_primal, t, mark, layout, x, context, *params):
+        ctx.capture_primal, ctx.t, ctx.mark = capture_primal, t, mark
+        ctx.save_for_backward(x, context, *params)
+        maps = capture_primal(x, t, context)
+        layout[:] = [(key, len(v)) for key, v in maps.items()]
+        return tuple(m for v in maps.values() for m in v)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, context, *params = ctx.saved_tensors
+        need = list(ctx.needs_input_grad[4:])
+        ctx.mark("capture_bwd<")
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(need[0])
+            c = context.detach().requires_grad_(need[1])
+            maps = ctx.capture_primal(xs, ctx.t, c)
+            outs = [m for v in maps.values() for m in v]
+            used = [(o, g) for o, g in zip(outs, gs) if g is not None]
+            picked = [w for w, k in zip([xs, c] + list(params), need) if k]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in used], picked, [g for _, g in used],
+                allow_unused=True))
+        out = [next(grads) if k else None for k in need]
+        ctx.mark("capture_bwd>")
+        return (None, None, None, None, *out)
+
+
+def _no_mark(name: str) -> None:
+    pass
 
 
 def sample_comat(
@@ -121,24 +173,39 @@ def sample_comat(
     context: torch.Tensor,
     null_context: Optional[torch.Tensor],
     params: Sequence[torch.Tensor],
-) -> torch.Tensor:
+    capture_primal: Optional[Callable] = None,
+    capture_idx: Optional[Sequence[int]] = None,
+    mark: Optional[Callable[[str], None]] = None,
+) -> SampleResult:
     """Pass 2 of the CoMat sampler: the differentiable replay from pass
     1's tables (`sample_inference`'s eps table and trajectory, made with
-    the same `step_noise`). Returns the final latents, differentiable
-    through the K trained steps only.
+    the same `step_noise`). Returns a SampleResult whose final latents
+    are differentiable through the K trained steps only.
 
     `diff_eps_model(x, t, context, null_context)` is the differentiable
     guided eps, reading the trainable tensors `params`. `trained_idx`
     holds K ascending step indices, `interval` apart; the replay starts at
-    pass 1's latent entering the first of them."""
+    pass 1's latent entering the first of them.
+
+    With `capture_primal(x, t, context) -> {key: [maps]}`, the maps are
+    captured at the segments `capture_idx` (A indices into the K
+    segments, repeats allowed; default all K), each at its segment's entry
+    latent and timestep, and returned in `captured`, each map stacked over
+    A. `mark(name)` is called after the replay ("replay") and around each
+    op's backward ("replay_bwd<", "replay_bwd>", "capture_bwd<",
+    "capture_bwd>")."""
+    mark = _no_mark if mark is None else mark
     S = len(coeffs.timesteps)
     eps_table, latents_traj = eps_table.detach(), latents_traj.detach()
     trained: List[int] = [int(i) for i in trained_idx]
     x = latents_traj[trained[0]]
+    entries = []
     for p in trained:
         t = int(coeffs.timesteps[p])
+        entries.append(x)
         eps = _CachedPrimalEps.apply(
-            diff_eps_model, t, x, eps_table[p], context, null_context, *params
+            diff_eps_model, t, mark, x, eps_table[p], context, null_context,
+            *params
         )
         x, _ = ddpm_step_from_coeffs(coeffs, p, x, eps, step_noise[p])
         for pos in range(p + 1, min(p + interval, S)):
@@ -147,7 +214,23 @@ def sample_comat(
     # positions after the last segment, when interval * K < S
     for pos in range(trained[-1] + interval, S):
         x, _ = ddpm_step_from_coeffs(coeffs, pos, x, eps_table[pos], step_noise[pos])
-    return x
+    mark("replay")
+
+    captured: Dict[str, List[torch.Tensor]] = {}
+    if capture_primal is not None:
+        idx = range(len(trained)) if capture_idx is None else capture_idx
+        caps = []
+        for seg in (int(i) for i in idx):
+            layout: List[Tuple[str, int]] = []
+            flat = iter(_CaptureOnly.apply(
+                capture_primal, int(coeffs.timesteps[trained[seg]]), mark,
+                layout, entries[seg], context, *params))
+            caps.append({key: [next(flat) for _ in range(n)] for key, n in layout})
+        if caps:
+            captured = {key: [torch.stack([c[key][i] for c in caps])
+                              for i in range(len(maps))]
+                        for key, maps in caps[0].items()}
+    return SampleResult(x, captured, eps_table, latents_traj)
 
 
 def prepare_latents(

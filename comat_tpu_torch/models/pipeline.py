@@ -8,8 +8,10 @@ and its tiny test geometry. The pipeline owns its modules and their
 weights on one device: CUDA unless the caller asks for the CPU. Every
 module is built frozen (`requires_grad` off); the train step marks the
 trainable tensors (`training.train_step.partition_params`), and
-`forward` differentiates with respect to those of the UNet. SDXL, DPM++
-and attention capture are not ported yet.
+`forward` differentiates with respect to those of the UNet; with
+`capture=True` it also returns the cross-attention maps of the layers
+`cfg.capture_layers` at the chosen replay segments (attribute
+concentration). SDXL and DPM++ are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ class PipelineConfig:
     unet: UNetConfig
     text: CLIPTextConfig
     vae: VAEConfig
+    attrcon: bool = False
+    capture_layers: Tuple[str, ...] = ()
     lora_rank: int = 32
     resolution: int = 512
 
@@ -53,20 +57,31 @@ class PipelineConfig:
         return self.resolution // 8
 
 
+# The layers whose cross-attention maps attribute concentration reads
+# (the reference's list for SD1.5, training_script.py:315), and their
+# counterparts at the tiny geometry's resolutions.
+SD15_CAPTURE = ("mid_8", "up_16", "up_32", "up_64")
+TINY_CAPTURE = ("mid_2", "up_4", "up_8", "up_16")
+
+
 def make_pipeline_config(
     name: str, lora_rank: int = 32, resolution: int = 512, tiny: bool = False,
 ) -> PipelineConfig:
-    """`sd_1_5` (and its `_attrcon` variant name) at full or tiny width."""
+    """`sd_1_5` and `sd_1_5_attrcon` at full or tiny width. A name with
+    "attrcon" turns attribute concentration on (`attrcon`); either name
+    carries the capture layer list, as in JAX."""
     if not name.startswith("sd_1_5"):
         raise ValueError(f"unknown or not yet ported pipeline {name!r}")
+    kw = dict(attrcon="attrcon" in name, lora_rank=lora_rank,
+              resolution=resolution)
     if tiny:
         return PipelineConfig(
             unet=UNetConfig.tiny(), text=CLIPTextConfig.tiny(),
-            vae=VAEConfig.tiny(), lora_rank=lora_rank, resolution=resolution,
+            vae=VAEConfig.tiny(), capture_layers=TINY_CAPTURE, **kw,
         )
     return PipelineConfig(
         unet=UNetConfig.sd15(), text=CLIPTextConfig.sd15(),
-        vae=VAEConfig.sd15(), lora_rank=lora_rank, resolution=resolution,
+        vae=VAEConfig.sd15(), capture_layers=SD15_CAPTURE, **kw,
     )
 
 
@@ -156,10 +171,15 @@ class DiffusionPipeline:
         return EncodedPrompt(hidden, None)
 
     # ---- unet / vae ----
-    def unet_apply(self, latents, t, context, fused: bool = False):
-        """eps for latents (B, h, w, 4). `fused=True` runs the LoRA-free
-        twin, which must hold `fused_params()["unet"]`."""
+    def unet_apply(self, latents, t, context, fused: bool = False,
+                   capture: bool = False):
+        """eps for latents (B, h, w, 4); with `capture`, (eps, maps of
+        `cfg.capture_layers`). `fused=True` runs the LoRA-free twin, which
+        must hold `fused_params()["unet"]`."""
         unet = self.unet_inf if fused else self.unet
+        if capture:
+            return unet(latents, t, context, capture=True,
+                        capture_layers=self.cfg.capture_layers)
         return unet(latents, t, context)
 
     def decode_image(self, latents: torch.Tensor) -> torch.Tensor:
@@ -209,6 +229,8 @@ class DiffusionPipeline:
         step_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         presampled: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+        capture: bool = False,
+        capture_idx: Optional[Sequence[int]] = None,
         mark: Optional[Callable[[str], None]] = None,
     ) -> Tuple[torch.Tensor, SampleResult]:
         """Differentiable online generation. Returns (image, result).
@@ -225,8 +247,19 @@ class DiffusionPipeline:
         (S, B, h, w, 4), one table for both passes, when given, else
         drawn from `generator` (latents first, then the table).
         `presampled=(eps_table, latents_traj)` skips pass 1 (see
-        `presample`; give the same `step_noise`). `mark(name)` is called
-        after pass 1 ("pass1") and after the replay's forward ("pass2")."""
+        `presample`; give the same `step_noise`).
+
+        `capture=True`: the cross-attention maps of `cfg.capture_layers`
+        at the replay segments `capture_idx` (A indices into the K
+        segments; default all K), in `result.captured`, key -> list of
+        (A, B, heads, HW, 77) in the UNet's dtype. Each is a cond-half
+        capture forward: batch B at the segment's entry latent and
+        timestep, the prompt context, no guidance.
+
+        `mark(name)` is called after pass 1 ("pass1"), after the replay
+        ("replay"), after the capture forwards ("pass2"), around the
+        backward of each replay and capture op (see `sample_comat`) and
+        when the decode's backward ends ("decode_bwd>")."""
         cfg = self.cfg
         enc = self.encode_prompt(input_ids, eos_positions, train_text_encoder)
         nenc = self.encode_prompt(null_ids, null_eos_positions, train_text_encoder)
@@ -257,15 +290,30 @@ class DiffusionPipeline:
                 context, null_context, guidance_scale, guidance_rescale,
             )(lat, t)
 
-        latents = sample_comat(
+        capture_primal = None
+        if capture:
+            cap_dtype = cfg.unet.dtype
+
+            def capture_primal(lat, t, context):
+                _, maps = self.unet_apply(lat, t, context, capture=True)
+                return {key: [m.to(cap_dtype) for m in v] for key, v in maps.items()}
+
+        result = sample_comat(
             diff_eps_model, coeffs, eps_table, traj, step_noise, trained_idx,
             num_inference_steps // K, enc.context,
             nenc.context if guidance_scale > 1.0 else None,
             [p for p in self.unet.parameters() if p.requires_grad],
+            capture_primal=capture_primal, capture_idx=capture_idx, mark=mark,
         )
+        latents = result.latents
         if mark is not None:
             mark("pass2")
-        return self.decode_image(latents), SampleResult(latents, eps_table, traj)
+            if latents.requires_grad:
+                # autograd runs this view's node right after the decode's
+                # backward: it marks that backward's end
+                latents = latents.view_as(latents)
+                latents.register_hook(lambda g: mark("decode_bwd>"))
+        return self.decode_image(latents), result
 
     @torch.no_grad()
     def presample(

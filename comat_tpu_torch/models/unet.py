@@ -7,14 +7,21 @@ follow diffusers' UNet2DConditionModel, except that the attention
 projections hold their weight under `.base` (see models/lora.py) and the
 transformers' proj_in/proj_out are linear layers. Activations run NCHW in
 channels_last memory; the public layout is the JAX one, latents
-(B, h, w, 4). Capture mode and remat are training features and are not
-ported yet.
+(B, h, w, 4). Remat is not ported yet.
+
+Capture mode (`forward(..., capture=True)`) also returns the fp32
+cross-attention probabilities (B, heads, HW, 77) of every transformer
+block, keyed `{place}_{res}` (place down, mid or up; res the block's
+spatial size) and filtered by `capture_layers`, as the JAX UNet's
+`want`/`record` do. Only cross-attention (`attn2`) is captured; it takes
+the plain attention path, and the self-attention keeps the flash
+dispatch.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -89,11 +96,17 @@ class Attention(nn.Module):
         self.to_v = LoRALinear(ctx_dim, dim, bias=False, **kw)
         self.to_out = nn.ModuleList([LoRALinear(dim, dim, bias=True, **kw)])
 
-    def forward(self, x: torch.Tensor, context=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context=None,
+                sink: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """`sink`: a list that receives the fp32 probabilities (capture)."""
         ctx = x if context is None else context
-        out = multi_head_attention(
-            self.to_q(x), self.to_k(ctx), self.to_v(ctx), self.heads
-        )
+        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        if sink is None:
+            out = multi_head_attention(q, k, v, self.heads)
+        else:
+            out, probs = multi_head_attention(q, k, v, self.heads,
+                                              capture_probs=True)
+            sink.append(probs)
         return self.to_out[0](out)
 
 
@@ -134,9 +147,10 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5, **kw)
         self.ff = FeedForward(dim, **kw)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                sink: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, sink)
         return x + self.ff(self.norm3(x))
 
 
@@ -155,12 +169,14 @@ class Transformer2DModel(nn.Module):
         ])
         self.proj_out = nn.Linear(dim, dim, **kw)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                sink: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """`sink` receives each block's cross-attention probabilities."""
         B, C, H, W = x.shape
         h = self.norm(x).permute(0, 2, 3, 1).reshape(B, H * W, C)
         h = self.proj_in(h)
         for block in self.transformer_blocks:
-            h = block(h, context)
+            h = block(h, context, sink)
         h = self.proj_out(h)
         return h.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
 
@@ -289,7 +305,11 @@ class UNet2DConditionModel(nn.Module):
         sample: torch.Tensor,
         timesteps: Union[int, torch.Tensor],
         encoder_hidden_states: torch.Tensor,
-    ) -> torch.Tensor:
+        capture: bool = False,
+        capture_layers: Sequence[str] = (),
+    ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, List[torch.Tensor]]]]:
+        """eps (B, h, w, 4); with `capture`, (eps, {key: [probs, ...]}),
+        the keys those of `capture_layers` (every key when it is empty)."""
         dt = self.cfg.dtype
         B = sample.shape[0]
         t = torch.as_tensor(timesteps, device=sample.device)
@@ -300,29 +320,37 @@ class UNet2DConditionModel(nn.Module):
         )
         ctx = encoder_hidden_states.to(dt)
         h = self.conv_in(sample.to(dt).permute(0, 3, 1, 2))
+        captured: Dict[str, List[torch.Tensor]] = {}
+
+        def attend(tx, h, place):
+            key = f"{place}_{h.shape[2]}"
+            if not capture or (capture_layers and key not in capture_layers):
+                return tx(h, ctx)
+            sink = captured.setdefault(key, [])
+            return tx(h, ctx, sink)
 
         stack = [h]
         for block in self.down_blocks:
             for j, resnet in enumerate(block.resnets):
                 h = resnet(h, temb)
                 if block.attentions is not None:
-                    h = block.attentions[j](h, ctx)
+                    h = attend(block.attentions[j], h, "down")
                 stack.append(h)
             if block.has_resampler:
                 h = block.resample(h)
                 stack.append(h)
 
         h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, ctx)
+        h = attend(self.mid_block.attentions[0], h, "mid")
         h = self.mid_block.resnets[1](h, temb)
 
         for block in self.up_blocks:
             for j, resnet in enumerate(block.resnets):
                 h = resnet(torch.cat([h, stack.pop()], dim=1), temb)
                 if block.attentions is not None:
-                    h = block.attentions[j](h, ctx)
+                    h = attend(block.attentions[j], h, "up")
             h = block.resample(h)
 
         h = F.silu(self.conv_norm_out(h))
-        out = self.conv_out(h.float())
-        return out.permute(0, 2, 3, 1)
+        out = self.conv_out(h.float()).permute(0, 2, 3, 1)
+        return (out, captured) if capture else out

@@ -1,18 +1,25 @@
-"""The CoMat train step, reduced to the concept-matching (BLIP) reward.
+"""The CoMat train step: the concept-matching (BLIP) reward, the latent
+GAN and attribute concentration.
 
-Port of comat_tpu/training/train_step.py (`TrainConfig`,
-`partition_params`, `make_optimizer`, `sample_trained_idx`,
-`make_loss_fn`, `make_train_step`) without the GAN, attribute
-concentration, 8-bit Adam or gradient accumulation: each of those raises
+Port of comat_tpu/training/train_step.py (`TrainConfig`, `DiscState`,
+`partition_params`, `partition_disc_params`, `make_optimizer`,
+`make_d_optimizer`, `init_disc_state`, `sample_trained_idx`,
+`make_loss_fn`, `make_train_step`) without 8-bit Adam, remat, the int8
+pass 1 or gradient accumulation: each of those raises
 `NotImplementedError` naming its ROADMAP item. One step: encode the
 prompts, pass 1 (50 no-grad CFG UNet calls with LoRA fused), pass 2 (the
-K cached-primal replay segments), VAE decode with gradient, crop jitter,
-the BLIP caption loss and the reward-gradient tap, backward, then a
-global-norm clip and AdamW on the trainable tensors.
+K cached-primal replay segments, and with attribute concentration the
+capture forwards at A of them), VAE decode with gradient, crop jitter,
+the BLIP caption loss and the reward-gradient tap, the GAN's G loss
+(`disc`), the grounding losses (`extra_losses`, see training/attrcon.py),
+backward, a global-norm clip and AdamW on the trainable tensors; then,
+with a D optimizer, the discriminator's update on the detached latents
+and the batch's `gt_latents`.
 
 Randomness is injected: a `StepDraws` holds the initial latents, the
-per-step noise table (S, B, h, w, 4), the K-schedule start and the crop
-offsets; `sample_draws` makes one from a `torch.Generator`.
+per-step noise table (S, B, h, w, 4), the K-schedule start, the crop
+offsets and the A attribute-concentration draws; `sample_draws` makes
+one from a `torch.Generator`.
 
 The reward-gradient tap (reference training_script.py:644-651): only the
 caption reward backpropagates through the decoded image, so one BLIP
@@ -27,9 +34,12 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from comat_tpu_torch.diffusion.schedulers import inference_timesteps
 from comat_tpu_torch.losses.caption_reward import blip_caption_reward, crop_jitter
+from comat_tpu_torch.losses.gan import Discriminator, gan_d_loss, gan_g_loss
 from comat_tpu_torch.models.lora import is_lora_path
 from comat_tpu_torch.models.pipeline import DiffusionPipeline
 
@@ -54,7 +64,11 @@ class TrainConfig:
     norm_grad: bool = False         # --norm_grad
     train_text_encoder: bool = False
     gan_loss: bool = False
+    gan_loss_weight: float = 1.0    # --gan_loss_weight
     attrcon: bool = False
+    attrcon_train_steps: int = 2    # --attrcon_train_steps (A)
+    mask_token_loss_weight: float = 1e-3
+    mask_pixel_loss_weight: float = 5e-5
     gradient_accumulation_steps: int = 1
     use_8bit_adam: bool = False     # --use_8bit_adam
     gradient_checkpointing: bool = False
@@ -67,14 +81,13 @@ class TrainConfig:
         return self.total_step // self.K
 
 
-# Flags whose paths are not ported yet, and the ROADMAP item of each.
+# Flags whose paths are not ported yet, and the ROADMAP item of each, by
+# its title in Queue 1.
 _NOT_PORTED = (
-    ("gan_loss", "ROADMAP Queue 1 item 9 (GAN loss and the D update)"),
-    ("attrcon", "ROADMAP Queue 1 item 10 (attribute concentration)"),
-    ("use_8bit_adam", "ROADMAP Queue 1 item 16 (8-bit Adam)"),
-    ("gradient_checkpointing", "ROADMAP Queue 1 item 3 (remat)"),
-    ("remat_min_res", "ROADMAP Queue 1 item 3 (remat)"),
-    ("pass1_int8", "ROADMAP Queue 1 item 16 (W8A8 pass 1)"),
+    ("use_8bit_adam", "ROADMAP Queue 1: opt-in extras (8-bit Adam)"),
+    ("gradient_checkpointing", "ROADMAP Queue 1: remat and the memory-tight flag"),
+    ("remat_min_res", "ROADMAP Queue 1: remat and the memory-tight flag"),
+    ("pass1_int8", "ROADMAP Queue 1: opt-in extras (W8A8 pass 1)"),
 )
 
 
@@ -84,8 +97,8 @@ def _check_ported(cfg: TrainConfig) -> None:
             raise NotImplementedError(f"TrainConfig.{flag}: not ported yet, {item}")
     if cfg.gradient_accumulation_steps > 1:
         raise NotImplementedError(
-            "gradient_accumulation_steps > 1: not ported yet, ROADMAP Queue 1 "
-            "item 12 (DDP and gradient accumulation)")
+            "gradient_accumulation_steps > 1: not ported yet, ROADMAP Queue 1: "
+            "torch DDP with gradient accumulation")
 
 
 def partition_params(
@@ -210,6 +223,54 @@ def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
     return ClippedAdamW(params, cfg, initial_masters)
 
 
+def partition_disc_params(disc: Discriminator) -> Dict[str, torch.nn.Parameter]:
+    """Mark D's trainable tensors, its LoRA factors and its head, and
+    return them by name ("unet.<name>", "head.<name>"). Only these are
+    touched: D's other tensors stay frozen as built, and a base shared
+    with the generator keeps what the generator's partition set."""
+    trainable = {name: p for name, p in disc.named_parameters()
+                 if is_lora_path(name) or name.startswith("head.")}
+    for p in trainable.values():
+        p.requires_grad_(True)
+    return trainable
+
+
+def make_d_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor]
+                     ) -> ClippedAdamW:
+    """D's optimizer, scripts/sd15.sh's (--learning_rate_D 2e-5,
+    --adam_beta1_D 0, --max_grad_norm_D 1, beta2 0.999): a global-norm
+    clip and AdamW with the generator's eps and weight decay."""
+    return ClippedAdamW(params, dataclasses.replace(
+        cfg, learning_rate=2e-5, adam_b1=0.0, adam_b2=0.999, max_grad_norm=1.0,
+        textenc_lr=None))
+
+
+class DiscState(NamedTuple):
+    """D's trainable tensors (updated in place) and their optimizer."""
+
+    trainable: Dict[str, torch.nn.Parameter]
+    optimizer: ClippedAdamW
+
+
+def init_disc_state(disc: Discriminator, cfg: TrainConfig) -> DiscState:
+    trainable = partition_disc_params(disc)
+    return DiscState(trainable, make_d_optimizer(cfg, trainable))
+
+
+def _make_null_ctx_for_d(pipeline: DiffusionPipeline):
+    """D's text condition, without gradient: the null prompts' encoding,
+    or with `condition` the prompts' (--condition_discriminator, G side
+    only), from the pipeline's text encoder as it stands when called."""
+
+    def null_ctx_for_d(batch, condition: bool = False) -> torch.Tensor:
+        ids = batch["input_ids"] if condition else batch["null_ids"]
+        eos = batch.get("eos_positions") if condition else None
+        with torch.no_grad():
+            return pipeline.encode_prompt(ids, eos).context
+
+    return null_ctx_for_d
+
+
 class TrainState(NamedTuple):
     """What one step changes: the step count, the trainable tensors (in
     place) and the optimizer holding their fp32 masters
@@ -241,6 +302,9 @@ class StepDraws(NamedTuple):
     step_noise: torch.Tensor    # (S, B, h, w, 4)
     start: int                  # first trained step
     crop: Tuple[int, int]       # (offset_x, offset_y)
+    # (A,) with-replacement draws into the K segments where attribute
+    # concentration captures (JAX: sample_attrcon_draws)
+    attrcon_draws: Tuple[int, ...] = ()
 
 
 def max_start(cfg: TrainConfig) -> int:
@@ -259,46 +323,111 @@ def sample_draws(cfg: TrainConfig, batch: int, latent_size: int,
                  generator: torch.Generator,
                  device: Optional[torch.device] = None) -> StepDraws:
     """Draw a step's random inputs from `generator` (on its device):
-    latents, noise table, then the schedule start and the crop offsets."""
+    latents, noise table, then the schedule start, the crop offsets and,
+    with `cfg.attrcon`, the min(attrcon_train_steps, K) segment draws."""
     device = generator.device if device is None else device
     shape = (batch, latent_size, latent_size, 4)
     latents0 = torch.randn(shape, generator=generator, device=generator.device)
     noise = torch.randn((cfg.total_step, *shape), generator=generator,
                         device=generator.device)
     offset_range = cfg.resolution // 224
-    ints = torch.randint(0, 1 << 30, (3,), generator=generator,
+    n_attrcon = min(cfg.attrcon_train_steps, cfg.K) if cfg.attrcon else 0
+    ints = torch.randint(0, 1 << 30, (3 + n_attrcon,), generator=generator,
                          device=generator.device).tolist()
     return StepDraws(
         latents0.to(device), noise.to(device), ints[0] % (max_start(cfg) + 1),
         (ints[1] % (offset_range + 1), ints[2] % (offset_range + 1)),
+        tuple(i % cfg.K for i in ints[3:]),
     )
 
 
 class PhaseClock:
     """Marks on the device's timeline (CUDA events; host clock on the
-    CPU), read after the step has synchronised."""
+    CPU), read after the step has synchronised.
 
-    def __init__(self, device: torch.device):
+    A name may be marked more than once. `seconds(a, b)` spans the last
+    mark `a` to the last mark `b`; `seconds(name)` sums the spans
+    between the marks `name<` and `name>` taken in pairs (the backward of
+    each replay op, for instance). `probe`, when given, is called at
+    each mark (e.g. to read kernel launch counters), and `counts` takes
+    the differences of its readings over the same spans."""
+
+    def __init__(self, device: torch.device,
+                 probe: Optional[Callable[[], Dict[str, int]]] = None):
         self.cuda = device.type == "cuda"
-        self.marks: Dict[str, object] = {}
+        self.probe = probe
+        self.marks: Dict[str, List[Tuple[object, Optional[Dict[str, int]]]]] = {}
 
     def mark(self, name: str) -> None:
         if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            self.marks[name] = event
+            stamp = torch.cuda.Event(enable_timing=True)
+            stamp.record()
         else:
-            self.marks[name] = time.perf_counter()
+            stamp = time.perf_counter()
+        reading = self.probe() if self.probe is not None else None
+        self.marks.setdefault(name, []).append((stamp, reading))
 
-    def seconds(self, a: str, b: str) -> float:
-        ea, eb = self.marks[a], self.marks[b]
-        if self.cuda:
-            return ea.elapsed_time(eb) / 1e3
-        return eb - ea
+    def _pairs(self, a: str, b: Optional[str]):
+        if b is not None:
+            return [(self.marks[a][-1], self.marks[b][-1])]
+        begins, ends = self.marks.get(a + "<", []), self.marks.get(a + ">", [])
+        if len(begins) != len(ends):
+            raise RuntimeError(f"span {a}: {len(begins)} begins, {len(ends)} ends")
+        return list(zip(begins, ends))
+
+    def seconds(self, a: str, b: Optional[str] = None) -> float:
+        total = 0.0
+        for (sa, _), (sb, _) in self._pairs(a, b):
+            total += sa.elapsed_time(sb) / 1e3 if self.cuda else sb - sa
+        return total
+
+    def counts(self, a: str, b: Optional[str] = None) -> Dict[str, int]:
+        total: Dict[str, int] = {}
+        for (_, ra), (_, rb) in self._pairs(a, b):
+            for k in rb:
+                total[k] = total.get(k, 0) + rb[k] - ra[k]
+        return total
+
+
+# A step's segments on its clock: a pair of marks, or a span name (see
+# PhaseClock). Forward first, then the backward's spans, in the order
+# autograd runs them, then the updates.
+SEGMENTS: Dict[str, Tuple[str, Optional[str]]] = {
+    "pass1": ("start", "pass1"),
+    "replay_fwd": ("pass1", "replay"),
+    "capture_fwd": ("replay", "pass2"),
+    "decode_fwd": ("pass2", "decoded"),
+    "reward": ("decoded", "reward"),
+    "gan_fwd": ("reward", "gan_g"),
+    "grounding_fwd": ("gan_g", "losses"),
+    "grounding_bwd": ("grounding_bwd", None),
+    "gan_bwd": ("gan_bwd", None),
+    "decode_bwd": ("decode_bwd", None),
+    "capture_bwd": ("capture_bwd", None),
+    "replay_bwd": ("replay_bwd", None),
+    "optimizer": ("backward", "optimizer"),
+    "d_fwd": ("optimizer", "d_forward"),
+    "d_bwd": ("d_forward", "d_backward"),
+    "d_opt": ("d_backward", "end"),
+}
+
+# The seconds a train step reports, as sums of segments.
+PHASES = {
+    "s_pass1": ("pass1",),
+    "s_pass2": ("replay_fwd", "capture_fwd", "replay_bwd", "capture_bwd"),
+    "s_capture": ("capture_fwd", "capture_bwd"),
+    "s_decode": ("decode_fwd", "decode_bwd"),
+    "s_reward": ("reward",),
+    "s_gan_g": ("gan_fwd", "gan_bwd"),
+    "s_grounding": ("grounding_fwd", "grounding_bwd"),
+    "s_optimizer": ("optimizer",),
+    "s_d_update": ("d_fwd", "d_bwd", "d_opt"),
+}
 
 
 def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
-                 extra_losses: Optional[Callable] = None, disc=None):
+                 extra_losses: Optional[Callable] = None,
+                 disc: Optional[Discriminator] = None):
     """The differentiated quantity of a step.
 
     loss_fn(batch, draws, clock=None) -> (loss, (metrics, latents)).
@@ -306,14 +435,17 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     caption_ids, caption_mask and caption_labels (numpy or tensors);
     `draws` a StepDraws. loss.backward() fills `.grad` of the trainable
     tensors. metrics: reward_blip, reward_total, reward_norm, step_loss
-    (0-dim tensors)."""
+    (0-dim tensors), G_loss with `disc`, and what `extra_losses` adds.
+
+    With `cfg.attrcon` the replay captures the cross-attention maps at
+    the segments `draws.attrcon_draws`. `disc`: the GAN's G loss, D's
+    logits of the final latents against "real" at the last inference
+    timestep, weighted by `cfg.gan_loss_weight`; it reaches the latents
+    and not D's tensors. `extra_losses(batch, image, result, draws)` ->
+    (loss to add, metrics), e.g. `training.attrcon.make_attrcon_extra_losses`."""
     _check_ported(cfg)
-    if extra_losses is not None:
-        raise NotImplementedError(
-            "extra_losses: not ported yet, ROADMAP Queue 1 item 10 (attrcon)")
-    if disc is not None:
-        raise NotImplementedError(
-            "disc: not ported yet, ROADMAP Queue 1 item 9 (GAN)")
+    t_final = int(inference_timesteps(cfg.total_step)[-1])
+    null_ctx_for_d = _make_null_ctx_for_d(pipeline)
 
     def caption_loss_of_image(img, batch):
         r = blip_caption_reward(blip, img, batch["caption_ids"],
@@ -322,6 +454,15 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
 
     def loss_fn(batch, draws: StepDraws, clock: Optional[PhaseClock] = None):
         mark = clock.mark if clock is not None else (lambda name: None)
+
+        def hook(tensor, name):
+            """Mark `name` when autograd runs the node that made `tensor`,
+            which it does in the reverse order of the nodes' creation
+            among those whose gradients are ready. A view made just
+            before a stage's first op marks that stage's end."""
+            if clock is not None and tensor.requires_grad:
+                tensor.register_hook(lambda g: mark(name))
+
         mark("start")
         trained_idx = sample_trained_idx(cfg, draws.start)
         image, result = pipeline.forward(
@@ -331,13 +472,11 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             guidance_rescale=cfg.guidance_rescale,
             eos_positions=batch.get("eos_positions"),
             train_text_encoder=cfg.train_text_encoder,
-            latents0=draws.latents0, step_noise=draws.step_noise, mark=mark,
+            latents0=draws.latents0, step_noise=draws.step_noise,
+            capture=cfg.attrcon, capture_idx=draws.attrcon_draws, mark=mark,
         )
         mark("decoded")
-        if clock is not None and result.latents.requires_grad:
-            # the gradient reaches the final latents when the decode's
-            # backward ends and the replay's begins
-            result.latents.register_hook(lambda g: mark("decode_backward"))
+        hook(image, "decode_bwd<")    # "decode_bwd>": see pipeline.forward
 
         offset_range = cfg.resolution // 224
         cropped = crop_jitter(image, *draws.crop, cfg.resolution - offset_range)
@@ -356,49 +495,112 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             "reward_blip": reward,
             "reward_total": cfg.reward_weight * reward,
             "reward_norm": reward_norm,
-            "step_loss": loss.detach(),
         }
+
+        if disc is not None:
+            null_ctx = null_ctx_for_d(
+                batch, condition=disc.gan_cfg.condition_discriminator)
+            lat_d = result.latents.view_as(result.latents)
+            hook(lat_d, "gan_bwd>")
+            g_loss = gan_g_loss(disc, lat_d, t_final, null_ctx)
+            hook(g_loss, "gan_bwd<")
+            loss = loss + cfg.gan_loss_weight * g_loss
+            metrics["G_loss"] = g_loss.detach()
+        mark("gan_g")
+
+        if extra_losses is not None:
+            if clock is not None:
+                views = {k: [m.view_as(m) for m in v]
+                         for k, v in result.captured.items()}
+                maps = [m for v in views.values() for m in v if m.requires_grad]
+                left = [len(maps)]
+
+                def last_map(g):    # the grounding backward ends at the last map
+                    left[0] -= 1
+                    if left[0] == 0:
+                        mark("grounding_bwd>")
+
+                for m in maps:
+                    m.register_hook(last_map)
+                result = result._replace(captured=views)
+            add, extra_metrics = extra_losses(batch, image, result, draws)
+            hook(add, "grounding_bwd<")
+            loss = loss + add
+            metrics.update(extra_metrics)
+        mark("losses")
+        metrics["step_loss"] = loss.detach()
         return loss, (metrics, result.latents)
 
     return loss_fn
 
 
 def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
-                    extra_losses: Optional[Callable] = None, disc=None):
-    """train_step(state, batch, draws=None, generator=None) ->
+                    extra_losses: Optional[Callable] = None,
+                    disc: Optional[Discriminator] = None,
+                    d_optimizer: Optional[ClippedAdamW] = None):
+    """train_step(state, batch, draws=None, generator=None, clock=None) ->
     (new state, metrics).
 
     `draws` are the step's random inputs; without them they are drawn
-    from `generator`. metrics (Python floats): reward_blip, reward_total,
-    reward_norm, step_loss, grad_norm (before the clip), and the seconds
-    of the step's phases on its device: s_pass1 (encode and pass 1),
-    s_pass2 (the replay, forward and backward), s_decode (forward and
-    backward), s_reward (crop, BLIP forward and backward), s_optimizer,
-    s_step."""
+    from `generator`. With `disc` the loss holds the GAN's G term; with
+    `d_optimizer` too (`init_disc_state(disc, cfg).optimizer`) the step
+    then updates D, after the generator as JAX does: D's loss on the
+    detached final latents (label 0) and `batch["gt_latents"]` (label
+    1), both under the null prompts' encoding by the text encoder as the
+    generator's update left it.
+
+    metrics (Python floats): reward_blip, reward_total, reward_norm,
+    step_loss, grad_norm (before the clip), G_loss and D_loss with the
+    GAN, token_loss and pixel_loss with attribute concentration, and the
+    seconds of the step's phases on its device (`PHASES`): s_pass1
+    (encode and pass 1), s_pass2 (the replay and the capture, forward and
+    backward; s_capture the capture alone), s_decode (forward and
+    backward), s_reward (crop, BLIP forward and backward), s_gan_g (D's
+    forward and backward for the G loss), s_grounding (the grounding
+    losses, forward and backward), s_optimizer, s_d_update (D's loss,
+    backward and optimizer), s_step. `clock`: a PhaseClock to mark the
+    step on (one is made without it), for a caller that reads more of
+    it, e.g. launch counts by segment through its probe."""
     loss_fn = make_loss_fn(pipeline, blip, cfg, extra_losses, disc)
+    t_final = int(inference_timesteps(cfg.total_step)[-1])
+    null_ctx_for_d = _make_null_ctx_for_d(pipeline)
 
     def train_step(state: TrainState, batch, draws: Optional[StepDraws] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   clock: Optional[PhaseClock] = None):
         if draws is None:
             draws = sample_draws(cfg, len(batch["input_ids"]),
                                  pipeline.cfg.latent_size, generator,
                                  pipeline.device)
-        clock = PhaseClock(pipeline.device)
+        clock = PhaseClock(pipeline.device) if clock is None else clock
         state.optimizer.zero_grad()
-        loss, (metrics, _) = loss_fn(batch, draws, clock)
+        loss, (metrics, gen_latents) = loss_fn(batch, draws, clock)
         loss.backward()
         clock.mark("backward")
         grad_norm = state.optimizer.step()
+        clock.mark("optimizer")
+        if disc is not None and d_optimizer is not None:
+            null_ctx = null_ctx_for_d(batch)
+            gt = batch["gt_latents"]
+            if not isinstance(gt, torch.Tensor):
+                gt = torch.from_numpy(np.asarray(gt))
+            d_optimizer.zero_grad()
+            d_loss = gan_d_loss(disc, gen_latents, gt, t_final, null_ctx)
+            clock.mark("d_forward")
+            d_loss.backward()
+            clock.mark("d_backward")
+            d_optimizer.step()
+            metrics["D_loss"] = d_loss.detach()
+        else:
+            clock.mark("d_forward")
+            clock.mark("d_backward")
         clock.mark("end")
         out = {k: float(v) for k, v in metrics.items()}
         out["grad_norm"] = float(grad_norm)
-        sec = clock.seconds
-        out["s_pass1"] = sec("start", "pass1")
-        out["s_pass2"] = sec("pass1", "pass2") + sec("decode_backward", "backward")
-        out["s_decode"] = sec("pass2", "decoded") + sec("reward", "decode_backward")
-        out["s_reward"] = sec("decoded", "reward")
-        out["s_optimizer"] = sec("backward", "end")
-        out["s_step"] = sec("start", "end")
+        seg = {name: clock.seconds(*marks) for name, marks in SEGMENTS.items()}
+        for name, parts in PHASES.items():
+            out[name] = sum(seg[p] for p in parts)
+        out["s_step"] = clock.seconds("start", "end")
         return TrainState(state.step + 1, state.trainable, state.optimizer), out
 
     return train_step

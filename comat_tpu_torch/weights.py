@@ -14,7 +14,7 @@ transformers' fused `qkv`. LoRA factors `lora_a` (in, r) / `lora_b`
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -284,25 +284,46 @@ def _convert(tree: Mapping, rule) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _disc_convert(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX discriminator tree {"unet": ..., "head": {"params": {"mlp":
+    {kernel (4, 1), bias (1,)}}}} -> the port `Discriminator`'s state
+    dict ("unet.<name>", "head.mlp.weight" (1, 4), "head.mlp.bias")."""
+    out = {f"unet.{k}": v for k, v in _convert(tree["unet"], _unet_rule).items()}
+    if "head" in tree:
+        mlp = tree["head"].get("params", tree["head"])["mlp"]
+        out["head.mlp.weight"] = torch.tensor(_dense(mlp["kernel"]))
+        out["head.mlp.bias"] = torch.tensor(np.asarray(mlp["bias"]))
+    return out
+
+
 def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{"unet", "text", "vae", "blip"} JAX parameter trees, as numpy
-    arrays -> state dicts of the port's modules under the same keys (CPU
-    fp32 tensors; the modules cast them to their own dtypes on load).
-    Keys missing from `tree` are missing from the result; leaves the port
-    does not hold (the VAE encoder) are dropped."""
+    """{"unet", "text", "vae", "blip", "disc"} JAX parameter trees, as
+    numpy arrays -> state dicts of the port's modules under the same keys
+    (CPU fp32 tensors; the modules cast them to their own dtypes on load).
+    "disc" is a discriminator's tree (`losses.gan.Discriminator`). Keys
+    missing from `tree` are missing from the result; leaves the port does
+    not hold (the VAE encoder) are dropped."""
     rules = {"unet": _unet_rule, "text": _clip_rule, "vae": _vae_rule,
              "blip": _blip_rule}
-    return {k: _convert(tree[k], rule) for k, rule in rules.items() if k in tree}
+    out = {k: _convert(tree[k], rule) for k, rule in rules.items() if k in tree}
+    if "disc" in tree:
+        out["disc"] = _disc_convert(tree["disc"])
+    return out
 
 
 @torch.no_grad()
-def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+def init_weights_(module: nn.Module, generator: torch.Generator,
+                  skip: Iterable[str] = ()) -> None:
     """Seeded random weights, in place: every parameter with two or more
     dims ~ N(0, 1/fan_in) (fan_in = the product of all dims but the
     first; `lora_a` ~ N(0, 1/rank^2) and `lora_b` = 0 as in JAX), norm
     scales 1 and biases 0. Parameters are drawn in name order from
-    `generator`, in fp32 on the generator's device."""
+    `generator`, in fp32 on the generator's device; those named in `skip`
+    are left as they are."""
+    skip = set(skip)
     for name, p in sorted(module.named_parameters()):
+        if name in skip:
+            continue
         if name.endswith("lora_b"):
             p.zero_()
         elif name.endswith("lora_a"):

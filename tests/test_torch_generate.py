@@ -25,6 +25,17 @@ PROMPTS = ["a red car and a blue bird", "two green cats on a mat"]
 STEPS = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test files run in parallel worker processes (pytest-xdist);
+    one intra-op thread per worker keeps their torch work from
+    oversubscribing the cores, which slows every worker many times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _nonzero_lora_b(params, seed=3):
     rng = np.random.default_rng(seed)
 

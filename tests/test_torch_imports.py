@@ -33,7 +33,12 @@ def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     assert {"comat_tpu_torch.ops.flash_attention", "comat_tpu_torch.models.blip",
             "comat_tpu_torch.losses.caption_reward",
-            "comat_tpu_torch.training.train_step"} <= set(mods)
+            "comat_tpu_torch.training.train_step",
+            "comat_tpu_torch.losses.gan", "comat_tpu_torch.losses.grounding",
+            "comat_tpu_torch.training.attrcon",
+            "comat_tpu_torch.segmentation.interface",
+            "comat_tpu_torch.text.linguistics", "comat_tpu_torch.text.miniparse",
+            "comat_tpu_torch.text.parse_cache"} <= set(mods)
     res = _run(f"""
         import importlib, sys
         for m in {mods!r}:

@@ -61,6 +61,17 @@ LOSS_TOL = 1e-2
 TOWERS = {"vae": "tune_vae", "text": "tune_text_encoder"}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test files run in parallel worker processes (pytest-xdist);
+    one intra-op thread per worker keeps their torch work from
+    oversubscribing the cores, which slows every worker many times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bf16_towers(cfg, bf16):
     return dataclasses.replace(
         cfg, vae=dataclasses.replace(cfg.vae, dtype=bf16),

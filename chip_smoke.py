@@ -42,9 +42,10 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    pipeline, with a fresh `init_train_state(tune_vae=True)`: the bf16
    decoder trains through fp32 masters, so the 21 gated decoder convs
    launch the bf16 dw each step; 2 steps; finite loss and gradient norm,
-   every VAE and LoRA master changed, every bf16 working copy equal to
-   its master rounded, the expected launch counts (dw all bf16), seconds
-   per step, its split and peak memory;
+   every VAE and LoRA master changed (but the encoder's zero biases,
+   which no gradient reaches and weight decay keeps at zero), every bf16
+   working copy equal to its master rounded, the expected launch counts
+   (dw all bf16), seconds per step, its split and peak memory;
 8. the full recipe (scripts/sd15.sh with --gan_loss and attribute
    concentration) on phase 6's pipeline and BLIP: D an SD1.5 UNet with
    LoRA 128 and the mlp head sharing G's base, its optimizer sd15.sh's
@@ -52,21 +53,39 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    3 steps; every loss component finite, every LoRA, D LoRA and head
    leaf moved, the launch counts of each kernel by role (pass 1, replay,
    capture, decode, D forward, D backward) as expected, seconds per step,
-   its split (CUDA events) and peak memory.
+   its split (CUDA events) and peak memory;
+9. the trainer CLI: `comat_tpu_torch.train.main` with the flags of
+   comat_tpu_torch/scripts/sd15.sh (the repo's scripts/sd15.sh, with
+   --gradient_checkpointing, plus --allow_smoke --seg_model
+   center_prior, the launcher's own defaults, not the caller's
+   environment), 512^2, batch 4, LoRA 128, 4 steps, one validation image
+   at step 0, 3 and 4 and a checkpoint at 3 and 4
+   (--validation_steps 3, --checkpoints_total_limit 2), against a
+   GanLatentStore whose latents the VAE encoder made from seeded images
+   (its own counted path); then a run resumed from its checkpoint-3
+   (`--resume_from_checkpoint latest` in a directory holding only that
+   checkpoint, --max_train_steps 4): the restored tensors equal those
+   saved, and its step 4 (the 4th batch inside the first epoch of
+   abc5k) ends with the uninterrupted run's checkpoint-4, bit for bit.
+   Seconds per step, its split, peak memory, the seconds of each
+   validation and the launches by role, each beside phase 8's.
 Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
 in the driven paths: generation, the reduced recipe's train step, the
 same step with the VAE trained, phase 4's fp32 card run of the train step
-with the VAE trained (dw), and the full recipe's step. Weights are random
-(the real ones are not in the repository); depth is not cut.
+with the VAE trained (dw), the full recipe's step, the latent store's
+encoding and the trainer CLI's run. Weights are random (the real ones are
+not in the repository); depth is not cut.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -84,6 +103,10 @@ GEN_FLASH = [(4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80),
 TRAIN_FLASH = [(8, 8, 4096, 4096, 40), (8, 8, 1024, 1024, 80),
                (8, 8, 256, 256, 160), (4, 1, 4096, 4096, 512)]
 RAGGED_FLASH = (1, 8, 1000, 1100, 80)
+# validation's generate: one prompt (CFG batch 2, B*H = 16) and its
+# decode at batch 1
+VAL_FLASH = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80), (2, 8, 256, 256, 160),
+             (1, 1, 4096, 4096, 512)]
 # the flash backward at batch 4 (B*H = 32): the full recipe's D backward
 # for the G loss and its capture backward, both at the prompt batch
 HALF_BATCH_FLASH = [(4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80),
@@ -96,7 +119,30 @@ DECODER_CONVS = [(128, 512, 512), (256, 512, 512), (256, 512, 256),
 # where phase 4 (batch 1, fp32, the VAE trained) launches dw
 PARITY_DW_CONVS = [(128, 512, 512), (128, 512, 256), (128, 256, 256),
                    (256, 256, 256), (256, 256, 128), (256, 128, 128)]
+# (H, C, Cout): the 12 gated convs of the 512^2 encoder, the shapes the
+# decoder's list lacks (the others: 512/128/128, 256/256/256, 128/512/512)
+ENCODER_CONVS = [(256, 128, 256), (128, 256, 512)]
 GEN_BATCH, TRAIN_BATCH = 2, 4
+# the trainer CLI (phase 9): its launcher, steps and, per step by role,
+# phase 8's launches but for remat: the replay's UNet forward inside its
+# backward runs each checkpointed transformer block again (+75 A), and
+# the decoder runs its 18 gated resnet convs again (+18 B forward); pass 1
+# runs the LoRA'd UNet unfused (the same 750 A)
+SD15_LAUNCHER = os.path.join("comat_tpu_torch", "scripts", "sd15.sh")
+CLI_STEPS, CLI_RESUME = 4, 3
+CLI_LAUNCHES = {
+    "pass1": {"flash_fwd": 750},
+    "replay": {"flash_fwd": 150, "dq": 75, "dkv": 75},
+    "capture": {"flash_fwd": 60, "dq": 30, "dkv": 30},
+    "decode": {"flash_fwd": 1, "dq": 1, "dkv": 1, "conv_fwd": 39, "conv_dx": 21},
+    "d_forward": {"flash_fwd": 30},
+    "d_backward": {"dq": 30, "dkv": 30},
+}
+# one validation image: 50 CFG UNet calls (15 A each) and its decode
+VALIDATION_LAUNCHES = {"flash_fwd": 751, "conv_fwd": 21}
+# encoding 4 images at 512^2: the 12 gated encoder convs and the
+# mid-block attention
+ENCODE_LAUNCHES = {"flash_fwd": 1, "conv_fwd": 12}
 TRAIN_PROMPTS = ["a red cube on top of a blue sphere",
                  "a photo of two cats and a green umbrella",
                  "a yellow bus parked next to a brown horse",
@@ -472,7 +518,8 @@ def phase_kernels(torch, fa, cv):
     entries = []
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype in ("float32", "bfloat16"):
-        for shape in GEN_FLASH + TRAIN_FLASH + [RAGGED_FLASH]:
+        val = VAL_FLASH if dtype == "bfloat16" else []
+        for shape in GEN_FLASH + TRAIN_FLASH + val + [RAGGED_FLASH]:
             entries += check_flash_fwd(torch, fa, gen, shape, dtype)
             _log_entry(entries[-1])
             torch.cuda.empty_cache()
@@ -486,14 +533,19 @@ def phase_kernels(torch, fa, cv):
             entries += check_conv_fwd(torch, cv, gen, GEN_BATCH, Hs, C, Cout, dtype)
             _log_entry(entries[-1])
             if dtype == "bfloat16":
-                entries += check_conv_fwd(torch, cv, gen, TRAIN_BATCH, Hs, C, Cout,
-                                          dtype)
-                _log_entry(entries[-1])
+                # the train step's decode, and validation's at batch 1
+                for B in (TRAIN_BATCH, 1):
+                    entries += check_conv_fwd(torch, cv, gen, B, Hs, C, Cout, dtype)
+                    _log_entry(entries[-1])
             entries += check_conv_dx(torch, cv, gen, TRAIN_BATCH, Hs, C, Cout, dtype)
             _log_entry(entries[-1])
             entries += check_conv_dw(torch, cv, gen, TRAIN_BATCH, Hs, C, Cout, dtype)
             _log_entry(entries[-1])
             torch.cuda.empty_cache()
+    # the encoder's own shapes, where phase 9 encodes the latent store
+    for Hs, C, Cout in ENCODER_CONVS:
+        entries += check_conv_fwd(torch, cv, gen, TRAIN_BATCH, Hs, C, Cout, "bfloat16")
+        _log_entry(entries[-1])
     # dw where the train step runs it: the VAE trained, in phase 4's run
     for Hs, C, Cout in PARITY_DW_CONVS:
         entries += check_conv_dw(torch, cv, gen, 1, Hs, C, Cout, "float32")
@@ -665,7 +717,12 @@ def phase_train_parity(torch, fa, cv, kernels):
         d_loss = gan_d_loss(disc, latents, gt.to(dev), t_final, null)
         d_loss.backward()
         metrics["D_loss"] = d_loss.detach()
-        grads = {n: p.grad.detach().cpu() for n, p in trainable.items()}
+        # the VAE encoder, trained but never run by the step, has none
+        unreached = [n for n, p in trainable.items() if p.grad is None]
+        if not all(n.startswith(("vae.encoder.", "vae.quant_conv.")) for n in unreached):
+            raise AssertionError(f"trainable tensors without gradient: {unreached[:5]}")
+        grads = {n: p.grad.detach().cpu() for n, p in trainable.items()
+                 if p.grad is not None}
         grads.update({f"disc.{n}": p.grad.detach().cpu() for n, p in d_trainable.items()})
         return {k: float(v) for k, v in metrics.items()}, grads
 
@@ -850,13 +907,18 @@ def phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch):
     state, counts, by_shape, peak, median = run_train_steps(
         torch, fa, cv, kernels, step, state, batch, gen, TUNE_VAE_STEPS,
         "train_tune_vae_bf16")
-    unchanged = [n for n, m in masters.items() if torch.equal(before[n], m)]
+    # the encoder takes weight decay alone, which leaves a zero tensor zero
+    zero = [n for n, m in masters.items()
+            if n.startswith(("vae.encoder.", "vae.quant_conv.")) and not m.any()]
+    unchanged = [n for n, m in masters.items()
+                 if torch.equal(before[n], m) and n not in zero]
     stale = [n for n in bf16
              if not torch.equal(state.trainable[n].detach(), masters[n].bfloat16())]
     moved = sum(not torch.equal(before[n].bfloat16(), state.trainable[n].detach())
                 for n in bf16)
     dw_dtypes = {k[-1] for k in cv.DW_KERNEL.launches_by_shape}
-    log(f"  {len(masters) - len(unchanged)} of {len(masters)} masters changed; "
+    log(f"  {len(masters) - len(unchanged) - len(zero)} of {len(masters)} masters "
+        f"changed, {len(zero)} zero encoder tensors stayed zero; "
         f"{moved} of {len(bf16)} bf16 working copies moved; dw dtypes {dw_dtypes}")
     if unchanged:
         raise AssertionError(f"{len(unchanged)} masters did not change: {unchanged[:5]}")
@@ -955,6 +1017,220 @@ def phase_train_full(torch, fa, cv, kernels, pipe, blip, batch):
     return by_shape, median, peak
 
 
+def encode_latent_store(torch, fa, cv, kernels, out_dir, prompts_path):
+    """The GAN's latent store for phase 9: the SD1.5 VAE encoder (bf16,
+    seeded weights) encodes 4 seeded 512^2 images on the card; their
+    means times the scaling factor are written as (64, 64, 4) .npy files
+    and indexed (jsonl) for every training prompt, round robin. Returns
+    (index path, launches by kernel and shape)."""
+    from comat_tpu_torch.config import VAEConfig
+    from comat_tpu_torch.models.vae import AutoencoderKL
+    from comat_tpu_torch.training.data import load_prompts
+    from comat_tpu_torch.weights import init_weights_
+
+    cfg = VAEConfig.sd15()
+    with torch.device("meta"):
+        vae = AutoencoderKL(cfg)
+    vae = vae.to_empty(device="cuda").eval().requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    init_weights_(vae, gen)
+    images = torch.rand(TRAIN_BATCH, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+    reset(kernels)
+    with torch.no_grad():
+        mean, logvar = vae.encode(images)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in counts_by_role(fa, cv).items() if n}
+    by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    latents = (mean * cfg.scaling_factor).float().cpu().numpy()
+    log(f"  encoded {TRAIN_BATCH} images to {latents.shape}, latent std "
+        f"{latents.std():.4f}; launches {counts}")
+    if latents.shape != (TRAIN_BATCH, 64, 64, 4) or not (
+            torch.isfinite(mean).all() and torch.isfinite(logvar).all()):
+        raise AssertionError(f"bad encoder output {latents.shape}")
+    if counts != ENCODE_LAUNCHES:
+        raise AssertionError(f"encoding launched {counts}, expected {ENCODE_LAUNCHES}")
+    import numpy as np
+
+    os.makedirs(out_dir, exist_ok=True)
+    for i, lat in enumerate(latents):
+        np.save(os.path.join(out_dir, f"latent_{i}.npy"), lat)
+    index = os.path.join(out_dir, "index.jsonl")
+    with open(index, "w") as f:
+        for j, p in enumerate(load_prompts(prompts_path)):
+            f.write(json.dumps({"prompt": p, "file_path": f"latent_{j % TRAIN_BATCH}.npy"})
+                    + "\n")
+    del vae, images
+    return index, by_shape
+
+
+def _median(rows, keys):
+    return {k: sorted(r[k] for r in rows)[len(rows) // 2] if len(rows) % 2
+            else sum(r[k] for r in rows) / len(rows) for k in keys}
+
+
+def _cli_roles(trainer):
+    """Launches by role over the trainer's steps, from its clocks."""
+    roles = {}
+    for role, segs in FULL_ROLES.items():
+        acc = {}
+        for seg in segs:
+            for k, n in trainer.segment_counts.get(seg, {}).items():
+                acc[k] = acc.get(k, 0) + n
+        roles[role] = {k: n for k, n in acc.items() if n}
+    return roles
+
+
+def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
+    """The trainer CLI with scripts/sd15.sh's flags at 512^2, then a resume
+    from its checkpoint. Returns (launches by kernel and shape of the
+    trainer's runs, of the latent store's encoding)."""
+    from comat_tpu_torch.train import main as train_main
+    from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.arguments import launcher_argv, parse_args
+    from comat_tpu_torch.training.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke", "trainer")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    argv = launcher_argv(os.path.join(REPO, SD15_LAUNCHER))
+    i = argv.index("--training_prompts") + 1
+    argv[i] = os.path.join(REPO, argv[i])
+    index, encode_shapes = encode_latent_store(torch, fa, cv, kernels,
+                                               os.path.join(work, "gan_store"), argv[i])
+    out = os.path.join(work, "output")
+    argv += ["--gan_gt_path", index, "--num_validation_images", "1",
+             "--max_train_steps", str(CLI_STEPS), "--validation_steps", str(CLI_RESUME),
+             "--checkpoints_total_limit", "2"]
+    n_val = 3   # validations at step 0, CLI_RESUME and CLI_STEPS
+    argv_first = argv + ["--output_dir", out]
+    log("  argv: " + " ".join(argv))
+    probe = lambda: counts_by_role(fa, cv)  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    trainer = train_main(argv_first, probe=probe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = counts_by_role(fa, cv)
+    roles = _cli_roles(trainer)
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    keys = ("s_step", *ts.PHASES)
+    for r in rows:
+        log(f"  step {r['step']}: loss {r['step_loss']:.4f}, G_loss {r['G_loss']:.4f}, "
+            f"D_loss {r['D_loss']:.4f}, token_loss {r['token_loss']:.4f}, grad_norm "
+            f"{r['grad_norm']:.4e}, lr {r['lr']:g}; {r['sec_per_step']:.3f} s wall; "
+            + ", ".join(f"{k} {r[k]:.3f}" for k in keys))
+    median = _median(rows[1:], ("sec_per_step",) + keys)
+    seg_sum = sum(median[k] for k in ts.PHASES if k != "s_capture")
+    log(f"  trainer_cli: {median['s_step']:.3f} s per step on the device "
+        f"({median['sec_per_step']:.3f} s wall, median of steps 2-{CLI_STEPS}; "
+        f"segments sum to {seg_sum:.3f} s), peak memory {peak:.1f} GiB, "
+        f"run {wall:.1f} s ({n_val} validation images, {n_val} checkpoints)")
+    log("  validation (one prompt, 50 DDPM steps, one fused UNet each): " + ", ".join(
+        f"step {step} {sec:.3f} s" for step, sec in trainer.validation_times))
+    log(f"  phase 8, same run: {full_median['s_step']:.3f} s per step on the device "
+        f"({full_median['wall_s']:.3f} s wall), peak memory {full_peak:.1f} GiB")
+    for k in keys:
+        log(f"    {k}: trainer_cli {median[k]:.3f} s, phase 8 {full_median[k]:.3f} s")
+    want_roles = {role: {k: n * CLI_STEPS for k, n in c.items()}
+                  for role, c in CLI_LAUNCHES.items()}
+    for role in FULL_ROLES:
+        log(f"  launches by role, {CLI_STEPS} steps: {role} {roles[role]} (predicted "
+            f"{want_roles[role]}; phase 8 per step { FULL_LAUNCHES[role] })")
+    want = {k: sum(c.get(k, 0) for c in want_roles.values())
+            + n_val * VALIDATION_LAUNCHES.get(k, 0) for k in counts}
+    log(f"  launches in all {counts}, predicted {want} (with {n_val} validation images)")
+    if len(rows) != CLI_STEPS or not all(
+            math.isfinite(r[k]) for r in rows for k in ("step_loss", "G_loss", "D_loss",
+                                                        "token_loss", "pixel_loss",
+                                                        "grad_norm")):
+        raise AssertionError(f"trainer metrics: {rows}")
+    if roles != want_roles or counts != want:
+        raise AssertionError(f"trainer launched {counts} ({roles}), expected {want} "
+                             f"({want_roles})")
+    ckpts = sorted(d for d in os.listdir(out) if d.startswith("checkpoint-"))
+    last = os.path.join(out, f"checkpoint-{CLI_STEPS}")
+    images = sorted(os.listdir(os.path.join(out, "validation_images")))
+    log(f"  {ckpts}, {sorted(os.listdir(last))}; validation images {images}")
+    if ckpts != [f"checkpoint-{CLI_RESUME}", f"checkpoint-{CLI_STEPS}"] or not os.path.isfile(
+            os.path.join(last, "pytorch_lora_weights.safetensors")) or len(images) != n_val:
+        raise AssertionError(f"trainer output: {ckpts}, images {images}")
+    cli_shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resume from checkpoint-3 in a directory of its own: the restored
+    # tensors against the saved ones, then step 4 against the
+    # uninterrupted run's
+    res_out = os.path.join(work, "resumed")
+    mid = os.path.join(out, f"checkpoint-{CLI_RESUME}")
+    shutil.copytree(mid, os.path.join(res_out, f"checkpoint-{CLI_RESUME}"))
+    saved = torch.load(os.path.join(mid, "state.pt"), map_location="cuda",
+                       weights_only=True)
+    reset(kernels)
+    resumed = Trainer(parse_args(argv + ["--output_dir", res_out,
+                                         "--resume_from_checkpoint", "latest"]),
+                      probe=probe)
+    same = (resumed.global_step == CLI_RESUME
+            and all(torch.equal(p.detach(), saved["trainable"][n])
+                    for n, p in resumed.state.trainable.items())
+            and all(torch.equal(p.detach(), saved["d_trainable"][n])
+                    for n, p in resumed.d_state.trainable.items())
+            and torch.equal(resumed.generator.get_state(), saved["generator"].cpu())
+            and resumed.state.optimizer.count == CLI_RESUME
+            and resumed.latent_store.rng.getstate() == saved["extra"]["latent_store_rng"])
+    log(f"  resumed at step {resumed.global_step}: {len(saved['trainable'])} G and "
+        f"{len(saved['d_trainable'])} D tensors, AdamW state, generator and latent "
+        f"store draws restored; "
+        f"equal to the saved: {same}")
+    if not same:
+        raise AssertionError("the resumed trainer does not hold the saved state")
+    resumed.train()
+    torch.cuda.synchronize()
+    counts = counts_by_role(fa, cv)
+    want = {k: sum(c.get(k, 0) for c in CLI_LAUNCHES.values())
+            + VALIDATION_LAUNCHES.get(k, 0) for k in counts}
+    row = json.loads(open(os.path.join(res_out, "metrics.jsonl")).read().splitlines()[-1])
+    log(f"  resumed step {row['step']}: loss {row['step_loss']:.4f} (uninterrupted "
+        f"{rows[-1]['step_loss']:.4f}); launches {counts} (predicted {want})")
+    if row["step"] != CLI_STEPS or counts != want:
+        raise AssertionError(f"resumed run: step {row['step']}, launches {counts}")
+    a = torch.load(os.path.join(last, "state.pt"), weights_only=True)
+    b = torch.load(os.path.join(res_out, f"checkpoint-{CLI_STEPS}", "state.pt"),
+                   weights_only=True)
+    diffs = {}
+    for key in ("trainable", "d_trainable"):
+        for n in a[key]:
+            diffs[f"{key}.{n}"] = (a[key][n].float() - b[key][n].float()).abs().max().item()
+    for key in ("optimizer", "d_optimizer"):
+        sa, sb = a[key]["adam"]["state"], b[key]["adam"]["state"]
+        for i in sa:
+            for m in sa[i]:
+                if torch.is_tensor(sa[i][m]):
+                    diffs[f"{key}.{i}.{m}"] = (sa[i][m].float()
+                                               - sb[i][m].float()).abs().max().item()
+    worst = max(diffs, key=diffs.get)
+    equal = (max(diffs.values()) == 0.0 and torch.equal(a["generator"], b["generator"])
+             and a["extra"] == b["extra"] and row["step_loss"] == rows[-1]["step_loss"])
+    log(f"  resumed checkpoint-{CLI_STEPS} against the uninterrupted run's: {len(diffs)} "
+        f"tensors, largest |delta| {diffs[worst]:.3e} ({worst}); generator, latent store "
+        f"draws and step loss equal: {equal}")
+    if not equal:
+        raise AssertionError("the resumed run's step does not repeat the uninterrupted run's")
+    for kern in kernels:
+        acc = cli_shapes.setdefault(kern.symbol, {})
+        for key, n in kern.launches_by_shape.items():
+            acc[key] = acc.get(key, 0) + n
+    del resumed, saved, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cli_shapes, encode_shapes
+
+
 def main() -> int:
     import torch
 
@@ -973,7 +1249,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("[1/8] build")
+    log("[1/9] build")
     t0 = time.perf_counter()
     paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
@@ -986,38 +1262,46 @@ def main() -> int:
     phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    log("[2/8] kernels against their plain versions")
+    log("[2/9] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/8] generation: SD1.5 fp32 256^2 card vs CPU")
+    log("[3/9] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    log("[4/8] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
+    log("[4/9] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    log("[5/8] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    log("[5/9] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
     gen_shapes = phase_main(torch, kernels)
 
-    log("[6/8] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    log("[6/9] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
     train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    log("[7/8] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    log("[7/9] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
     tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
 
-    log("[8/8] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
-    full_shapes, _, _ = phase_train_full(torch, fa, cv, kernels, pipe, blip, batch)
-    del pipe, blip
+    log("[8/9] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
+    full_shapes, full_median, full_peak = phase_train_full(torch, fa, cv, kernels, pipe,
+                                                           blip, batch)
+    del pipe, blip, batch
+
+    log("[9/9] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags, 512^2, batch 4, "
+        f"{CLI_STEPS} steps, then a run resumed at step {CLI_RESUME}")
+    cli_shapes, encode_shapes = phase_trainer_cli(torch, fa, cv, kernels, full_median,
+                                                  full_peak)
 
     # launches: those of the driven paths, each counted from 0 just before
     # it: generation, the reduced recipe's train step, the same with the
     # VAE trained (bf16), dw in the fp32 train step with the VAE trained
-    # (phase 4's card run), and the full recipe's step
+    # (phase 4's card run), the full recipe's step, the latent store's
+    # encoding and the trainer CLI's two runs
     paths = {"generate": gen_shapes, "train": train_shapes,
              "train_tune_vae_bf16": tune_bf16_shapes,
              "train_tune_vae": {cv.DW_KERNEL.symbol: tune_vae_shapes[cv.DW_KERNEL.symbol]},
-             "train_full": full_shapes}
+             "train_full": full_shapes, "gan_store_encode": encode_shapes,
+             "trainer_cli": cli_shapes}
     for e in entries:
         key = tuple(e.pop("key"))
         for path, shapes in paths.items():

@@ -1,4 +1,5 @@
-"""Noise schedule and affine sampler steps (DDPM fixed_small, DDIM).
+"""Noise schedule, affine sampler steps (DDPM fixed_small, DDIM) and the
+DPM-Solver++ 2M sampler.
 
 Port of comat_tpu/diffusion/schedulers.py. The tables are numpy: the
 schedule is computed in fp64 and kept in fp32, the per-step coefficients
@@ -177,3 +178,47 @@ def ddpm_step_from_coeffs(
     )
     pred_x0 = float(coeffs.x0_from_sample[i]) * x + float(coeffs.x0_from_eps[i]) * e
     return prev.to(sample.dtype), pred_x0.to(sample.dtype)
+
+
+def sample_dpmpp_2m(
+    eps_model,
+    schedule: DiffusionSchedule,
+    num_inference_steps: int,
+    latents0: torch.Tensor,
+    steps_offset: int = 1,
+) -> torch.Tensor:
+    """DPM-Solver++ 2M sampling (deterministic), JAX's `sample_dpmpp_2m`:
+    algorithm "dpmsolver++", solver order 2, epsilon prediction, the
+    validation scheduler of the reference. `eps_model(x, t)` returns the
+    guided eps. Data-prediction updates
+
+        x_{i+1} = (s_{i+1}/s_i) x - a_{i+1} (e^{-h} - 1) D
+
+    with D = x0_i at the first step and the 2M correction
+    D = x0_i + (x0_i - x0_{i-1}) / (2 r) after; the last step returns
+    x0 (alpha -> 1, sigma -> 0). alpha, sigma and lambda are computed in
+    fp64 and kept in fp32, and the scalar arithmetic is fp32, as in JAX."""
+    acp = np.asarray(schedule.alphas_cumprod, dtype=np.float64)
+    ts = inference_timesteps(num_inference_steps, schedule.num_train_timesteps,
+                             steps_offset)
+    alpha = np.sqrt(acp[ts]).astype(np.float32)
+    sigma = np.sqrt(1.0 - acp[ts]).astype(np.float32)
+    lam = (np.log(np.sqrt(acp[ts])) - np.log(np.sqrt(1.0 - acp[ts]))).astype(np.float32)
+    S = len(ts)
+    x = latents0.float()
+    x0_prev = None
+    for i in range(S):
+        eps = eps_model(x, int(ts[i])).float()
+        x0 = (x - float(sigma[i]) * eps) / float(alpha[i])
+        if i == S - 1:
+            x = x0
+            break
+        h = lam[i + 1] - lam[i]
+        d = x0
+        if x0_prev is not None:
+            r = (lam[i] - lam[i - 1]) / h
+            d = x0 + (x0 - x0_prev) / float(np.float32(2.0) * r)
+        x = (float(sigma[i + 1] / sigma[i]) * x
+             - float(alpha[i + 1] * (np.exp(-h) - np.float32(1.0))) * d)
+        x0_prev = x0
+    return x.to(latents0.dtype)

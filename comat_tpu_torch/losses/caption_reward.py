@@ -11,6 +11,7 @@ respect to the image.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -23,15 +24,32 @@ CAPTION_PREFIX = "a photography of"
 IGNORE_INDEX = -100
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_weights(in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """(out_size, in_size) fp32 on `device`: row o holds the weights with which
+    `F.interpolate(mode="bicubic", antialias=True)` sums the inputs into
+    output o along one axis (its resize of the one-hot inputs; the other
+    axis, unresized, passes each one-hot through unchanged)."""
+    eye = torch.eye(in_size, dtype=torch.float64)[None, None]
+    w = F.interpolate(eye, size=(out_size, in_size), mode="bicubic",
+                      antialias=True, align_corners=False)
+    return w[0, 0].float().to(device)
+
+
 def blip_preprocess(image01: torch.Tensor, size: int = 384) -> torch.Tensor:
     """(B, H, W, 3) in [0, 1] -> (B, size, size, 3), bicubic with
     antialiasing (torchvision Resize(antialias=True), as
     `jax.image.resize(method="bicubic", antialias=True)`), then
-    CLIP-normalised, in fp32."""
-    x = F.interpolate(
-        image01.float().permute(0, 3, 1, 2), size=(size, size),
-        mode="bicubic", antialias=True, align_corners=False,
-    ).permute(0, 2, 3, 1)
+    CLIP-normalised, in fp32.
+
+    The resize is two products with `F.interpolate`'s weights, one per
+    axis: its gradient is a product too, so a step repeats bit for bit on
+    a CUDA card, where `F.interpolate`'s backward sums with float atomics."""
+    _, H, W, _ = image01.shape
+    wh = _resize_weights(H, size, image01.device)
+    ww = _resize_weights(W, size, image01.device)
+    x = torch.einsum("oh,bhwc->bowc", wh, image01.float())
+    x = torch.einsum("pw,bowc->bopc", ww, x)
     mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=x.device)
     std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=x.device)
     return (x - mean) / std

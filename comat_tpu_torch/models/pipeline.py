@@ -3,7 +3,7 @@ sampler, for text-to-image generation.
 
 Port of comat_tpu/models/pipeline.py (`PipelineConfig`,
 `make_pipeline_config`, `DiffusionPipeline.encode_prompt / unet_apply /
-decode_image / fused_params / forward / presample / generate`) for SD1.5
+decode_image / fused_unet / forward / presample / generate`) for SD1.5
 and its tiny test geometry. The pipeline owns its modules and their
 weights on one device: CUDA unless the caller asks for the CPU. Every
 module is built frozen (`requires_grad` off); the train step marks the
@@ -11,13 +11,14 @@ trainable tensors (`training.train_step.partition_params`), and
 `forward` differentiates with respect to those of the UNet; with
 `capture=True` it also returns the cross-attention maps of the layers
 `cfg.capture_layers` at the chosen replay segments (attribute
-concentration). SDXL and DPM++ are not ported yet.
+concentration). `forward(remat=)` and `DiffusionPipeline(fuse_pass1=False)`
+are JAX's memory-tight options (--gradient_checkpointing). SDXL is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,11 +35,13 @@ from comat_tpu_torch.diffusion.schedulers import (
     DiffusionSchedule,
     make_sampler_coeffs,
     make_schedule,
+    sample_dpmpp_2m,
 )
 from comat_tpu_torch.models.clip_text import CLIPTextEncoder
 from comat_tpu_torch.models.lora import fuse_lora
+from comat_tpu_torch.models.remat import Remat
 from comat_tpu_torch.models.unet import UNet2DConditionModel
-from comat_tpu_torch.models.vae import VAEDecoder
+from comat_tpu_torch.models.vae import AutoencoderKL
 from comat_tpu_torch.weights import init_weights_
 
 
@@ -109,17 +112,43 @@ def _build(module_fn, device: torch.device):
     return module.to_empty(device=device).eval().requires_grad_(False)
 
 
+class _MasterView(torch.autograd.Function):
+    """One use of a bf16 trained tensor, as JAX casts its fp32 leaf at
+    each use. forward(master, working) returns a view of the bf16 working
+    copy (no copy: `ClippedAdamW` keeps it equal to the master rounded);
+    backward hands the bf16 cotangent to the fp32 master cast to fp32. A
+    tensor used twice in a step (the text encoder on the prompts and on
+    the null prompts) so sums its cotangents in fp32 at the master, as
+    JAX sums them at its fp32 leaf, instead of in bf16 at the working
+    copy."""
+
+    @staticmethod
+    def forward(ctx, master, working):
+        return working.view_as(working)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.float(), None
+
+
 class DiffusionPipeline:
     """Modules and weights on one device.
 
     `params` is {"unet", "text", "vae"} state dicts (as `state_dicts()`
     returns or `weights.from_jax_params` makes); without it the weights
-    are drawn from `seed` (`weights.init_weights_`)."""
+    are drawn from `seed` (`weights.init_weights_`).
+
+    `fuse_pass1=False` (JAX's memory-tight flag, --gradient_checkpointing)
+    builds no LoRA-free twin `unet_inf`: it would hold a second copy of
+    every attention base weight for the life of the run. Pass 1 fuses
+    exactly when the pipeline holds the twin; without it pass 1 runs the
+    LoRA'd UNet, and `generate` samples with a twin made for the call
+    (or the one its caller passes, see `fused_unet`)."""
 
     def __init__(
         self, cfg: PipelineConfig, device=None,
         params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-        seed: int = 0,
+        seed: int = 0, fuse_pass1: bool = True,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -127,15 +156,15 @@ class DiffusionPipeline:
             lambda: UNet2DConditionModel(cfg.unet, lora_rank=cfg.lora_rank),
             self.device,
         )
-        # LoRA-free twin for sampling, loaded with fused_params()
-        self.unet_inf = (
-            _build(lambda: UNet2DConditionModel(cfg.unet, lora_rank=0),
-                   self.device)
-            if cfg.lora_rank > 0 else self.unet
-        )
+        # LoRA-free twin for sampling, loaded by fused_unet()
+        self.unet_inf = self.unet if cfg.lora_rank == 0 else (
+            self._twin() if fuse_pass1 else None)
         self.text = _build(lambda: CLIPTextEncoder(cfg.text), self.device)
-        self.vae = _build(lambda: VAEDecoder(cfg.vae), self.device)
+        self.vae = _build(lambda: AutoencoderKL(cfg.vae), self.device)
         self.schedule: DiffusionSchedule = make_schedule()
+        # fp32 masters of bf16 trained tensors by name ("text.<name>",
+        # "vae.<name>"), set by the train state (`set_masters`)
+        self.masters: Dict[str, torch.Tensor] = {}
         if params is None:
             g = torch.Generator(device=self.device).manual_seed(seed)
             for module in (self.unet, self.text, self.vae):
@@ -155,6 +184,27 @@ class DiffusionPipeline:
             "vae": self.vae.state_dict(),
         }
 
+    def _twin(self) -> torch.nn.Module:
+        return _build(lambda: UNet2DConditionModel(self.cfg.unet, lora_rank=0),
+                      self.device)
+
+    def set_masters(self, masters: Mapping[str, torch.Tensor]) -> None:
+        """fp32 masters of bf16 trained tensors by name ("text.<name>",
+        "vae.<name>"): each use of such a tensor where autograd records
+        runs on its own view (`_MasterView`), and its gradient lands on
+        the master in fp32."""
+        self.masters = dict(masters)
+
+    def _tower(self, name: str, module: torch.nn.Module, *args, **kwargs):
+        """module(*args, **kwargs), through master views where they apply."""
+        pre = name + "."
+        views = {n[len(pre):]: m for n, m in self.masters.items() if n.startswith(pre)}
+        if not views or not torch.is_grad_enabled():
+            return module(*args, **kwargs)
+        own = dict(module.named_parameters())
+        views = {n: _MasterView.apply(m, own[n].detach()) for n, m in views.items()}
+        return torch.func.functional_call(module, views, args, kwargs)
+
     def _ids(self, ids) -> torch.Tensor:
         if not isinstance(ids, torch.Tensor):
             ids = torch.from_numpy(np.asarray(ids))
@@ -167,44 +217,50 @@ class DiffusionPipeline:
         `train_text_encoder`."""
         eos = None if eos_positions is None else self._ids(eos_positions)
         with torch.set_grad_enabled(train_text_encoder and torch.is_grad_enabled()):
-            hidden, _ = self.text(self._ids(input_ids), eos)
+            hidden, _ = self._tower("text", self.text, self._ids(input_ids), eos)
         return EncodedPrompt(hidden, None)
 
     # ---- unet / vae ----
     def unet_apply(self, latents, t, context, fused: bool = False,
-                   capture: bool = False):
+                   capture: bool = False, remat: Remat = False):
         """eps for latents (B, h, w, 4); with `capture`, (eps, maps of
         `cfg.capture_layers`). `fused=True` runs the LoRA-free twin, which
-        must hold `fused_params()["unet"]`."""
+        must hold the fused weights (`fused_unet()` loads them). `remat`: block checkpointing
+        (`UNet2DConditionModel.forward`)."""
         unet = self.unet_inf if fused else self.unet
         if capture:
             return unet(latents, t, context, capture=True,
-                        capture_layers=self.cfg.capture_layers)
-        return unet(latents, t, context)
+                        capture_layers=self.cfg.capture_layers, remat=remat)
+        return unet(latents, t, context, remat=remat)
 
-    def decode_image(self, latents: torch.Tensor) -> torch.Tensor:
+    def decode_image(self, latents: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """latents (B, h, w, 4) -> image (B, 8h, 8w, 3) as
         decode / 2 + 0.5, unclamped; differentiable where autograd
-        records."""
-        img = self.vae(latents / self.cfg.vae.scaling_factor)
+        records. `remat` checkpoints each decoder resnet block."""
+        img = self._tower("vae", self.vae, latents / self.cfg.vae.scaling_factor,
+                          remat=remat)
         return img / 2.0 + 0.5
 
-    def fused_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """The weights with the UNet's LoRA folded into its base weights
-        (for `unet_apply(..., fused=True)`)."""
-        out = self.state_dicts()
-        if self.cfg.lora_rank > 0:
-            out["unet"] = fuse_lora(out["unet"])
-        return out
+    def fused_unet(self) -> torch.nn.Module:
+        """A LoRA-free UNet holding the weights with the LoRA folded in:
+        the pipeline's twin, else one made for the caller, who may pass it
+        to several `generate` calls while the weights stay as they are."""
+        if self.cfg.lora_rank == 0:
+            return self.unet
+        unet = self.unet_inf if self.unet_inf is not None else self._twin()
+        unet.load_state_dict(fuse_lora(self.unet.state_dict()))
+        return unet
+
+    def _pass1_unet(self) -> torch.nn.Module:
+        """Pass 1's UNet: the fused twin where the pipeline holds one,
+        else the LoRA'd UNet, its LoRA branch unfused."""
+        return self.fused_unet() if self.unet_inf is not None else self.unet
 
     def _pass1_eps_model(self, context, null_context, guidance_scale,
-                         guidance_rescale):
-        """Pass 1's guided eps: the LoRA-free twin holding the fused
-        weights, no gradients."""
-        if self.cfg.lora_rank > 0:
-            self.unet_inf.load_state_dict(self.fused_params()["unet"])
+                         guidance_rescale, unet: torch.nn.Module):
+        """Pass 1's guided eps through `unet`, no gradients."""
         return make_cfg_eps_model(
-            lambda lat, t, ctx: self.unet_apply(lat, t, ctx, fused=True),
+            lambda lat, t, ctx: unet(lat, t, ctx),
             context.detach(),
             null_context.detach() if guidance_scale > 1.0 else None,
             guidance_scale,
@@ -232,6 +288,7 @@ class DiffusionPipeline:
         capture: bool = False,
         capture_idx: Optional[Sequence[int]] = None,
         mark: Optional[Callable[[str], None]] = None,
+        remat: Remat = False,
     ) -> Tuple[torch.Tensor, SampleResult]:
         """Differentiable online generation. Returns (image, result).
 
@@ -239,9 +296,15 @@ class DiffusionPipeline:
         K trained steps and the VAE decode with respect to every UNet
         tensor that requires grad (the LoRA factors in the default
         recipe), the VAE's where they require grad, and the text
-        encoder's under `train_text_encoder`. Pass 1 runs the fused
-        LoRA-free twin without gradients; pass 2 replays the K segments
-        with cached-primal UNet calls (`diffusion.sampler.sample_comat`).
+        encoder's under `train_text_encoder`. Pass 1 runs without
+        gradients, on the fused LoRA-free twin where the pipeline holds one
+        (else on the LoRA'd UNet, unfused); pass 2 replays the K segments with cached-primal
+        UNet calls (`diffusion.sampler.sample_comat`).
+
+        `remat` (JAX's `remat`: True, or an int R for the blocks at
+        resolution >= R) checkpoints the UNet's blocks in the replay's
+        recompute and, when set at all, each decoder resnet block. The
+        capture forwards are not checkpointed, as in JAX.
 
         Randomness: `latents0` (B, h, w, 4) and `step_noise`
         (S, B, h, w, 4), one table for both passes, when given, else
@@ -275,8 +338,8 @@ class DiffusionPipeline:
         step_noise = step_noise.to(self.device, torch.float32)
         if presampled is None:
             _, eps_table, traj = sample_inference(
-                self._pass1_eps_model(enc.context, nenc.context,
-                                      guidance_scale, guidance_rescale),
+                self._pass1_eps_model(enc.context, nenc.context, guidance_scale,
+                                      guidance_rescale, self._pass1_unet()),
                 coeffs, latents0.to(self.device), step_noise=step_noise,
             )
         else:
@@ -286,7 +349,7 @@ class DiffusionPipeline:
 
         def diff_eps_model(lat, t, context, null_context):
             return make_cfg_eps_model(
-                lambda l, tt, ctx: self.unet_apply(l, tt, ctx),
+                lambda l, tt, ctx: self.unet_apply(l, tt, ctx, remat=remat),
                 context, null_context, guidance_scale, guidance_rescale,
             )(lat, t)
 
@@ -313,7 +376,7 @@ class DiffusionPipeline:
                 # backward: it marks that backward's end
                 latents = latents.view_as(latents)
                 latents.register_hook(lambda g: mark("decode_bwd>"))
-        return self.decode_image(latents), result
+        return self.decode_image(latents, remat=bool(remat)), result
 
     @torch.no_grad()
     def presample(
@@ -336,7 +399,8 @@ class DiffusionPipeline:
         enc = self.encode_prompt(input_ids, eos_positions)
         nenc = self.encode_prompt(null_ids, null_eos_positions)
         eps_model = self._pass1_eps_model(
-            enc.context, nenc.context, guidance_scale, guidance_rescale)
+            enc.context, nenc.context, guidance_scale, guidance_rescale,
+            self._pass1_unet())
         if latents0 is None:
             latents0 = prepare_latents(
                 generator, enc.context.shape[0], self.cfg.resolution,
@@ -365,31 +429,40 @@ class DiffusionPipeline:
         latents0: Optional[torch.Tensor] = None,
         step_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        unet: Optional[torch.nn.Module] = None,
     ) -> torch.Tensor:
         """Text-to-image sampling without gradients.
 
-        Randomness: `latents0` (B, h, w, 4) and `step_noise`
-        (S, B, h, w, 4) when given, else draws from `generator` (latents
-        first, then one draw per step). Returns images (B, H, W, 3)
-        clipped to [0, 1], or the final latents for
+        `kind`: "ddpm", "ddim", or "dpmpp" (DPM-Solver++ 2M,
+        deterministic). Randomness: `latents0`
+        (B, h, w, 4) and `step_noise` (S, B, h, w, 4) when given, else
+        draws from `generator` (latents first, then one draw per step;
+        DPM++ draws no noise). `unet`: the sampler, as `fused_unet()`
+        returns it (default: `fused_unet()` for this call). Returns images
+        (B, H, W, 3) clipped to [0, 1], or the final latents for
         `output_type="latent"`."""
-        if kind not in ("ddpm", "ddim"):
-            raise ValueError(f"scheduler {kind!r} is not ported (ddpm, ddim)")
+        if kind not in ("ddpm", "ddim", "dpmpp"):
+            raise ValueError(f"unknown scheduler {kind!r} (ddpm, ddim, dpmpp)")
         cfg = self.cfg
         enc = self.encode_prompt(input_ids, eos_positions)
         nenc = self.encode_prompt(null_ids, None)
         B = enc.context.shape[0]
         eps_model = self._pass1_eps_model(
-            enc.context, nenc.context, guidance_scale, guidance_rescale)
+            enc.context, nenc.context, guidance_scale, guidance_rescale,
+            unet if unet is not None else self.fused_unet())
         if latents0 is None:
             latents0 = prepare_latents(
                 generator, B, cfg.resolution, cfg.resolution, self.device
             )
-        coeffs = make_sampler_coeffs(self.schedule, num_inference_steps, kind=kind)
-        latents, _, _ = sample_inference(
-            eps_model, coeffs, latents0.to(self.device), generator,
-            step_noise=step_noise,
-        )
+        if kind == "dpmpp":
+            latents = sample_dpmpp_2m(eps_model, self.schedule, num_inference_steps,
+                                      latents0.to(self.device))
+        else:
+            coeffs = make_sampler_coeffs(self.schedule, num_inference_steps, kind=kind)
+            latents, _, _ = sample_inference(
+                eps_model, coeffs, latents0.to(self.device), generator,
+                step_noise=step_noise,
+            )
         if output_type == "latent":
             return latents
         return self.decode_image(latents).clamp(0.0, 1.0)

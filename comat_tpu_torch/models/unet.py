@@ -7,7 +7,8 @@ follow diffusers' UNet2DConditionModel, except that the attention
 projections hold their weight under `.base` (see models/lora.py) and the
 transformers' proj_in/proj_out are linear layers. Activations run NCHW in
 channels_last memory; the public layout is the JAX one, latents
-(B, h, w, 4). Remat is not ported yet.
+(B, h, w, 4). `forward(..., remat=)` checkpoints the resnet and
+transformer blocks that JAX's `_remat_at` picks (models/remat.py).
 
 Capture mode (`forward(..., capture=True)`) also returns the fp32
 cross-attention probabilities (B, heads, HW, 77) of every transformer
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from comat_tpu_torch.config import UNetConfig
+from comat_tpu_torch.models import remat as rm
 from comat_tpu_torch.models.lora import LoRALinear
 from comat_tpu_torch.ops.attention import multi_head_attention
 
@@ -307,9 +309,13 @@ class UNet2DConditionModel(nn.Module):
         encoder_hidden_states: torch.Tensor,
         capture: bool = False,
         capture_layers: Sequence[str] = (),
+        remat: rm.Remat = False,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, List[torch.Tensor]]]]:
         """eps (B, h, w, 4); with `capture`, (eps, {key: [probs, ...]}),
-        the keys those of `capture_layers` (every key when it is empty)."""
+        the keys those of `capture_layers` (every key when it is empty).
+        `remat`: True checkpoints every resnet and transformer block, an
+        int R those at spatial resolution >= R; a captured block returns
+        its maps through the checkpoint."""
         dt = self.cfg.dtype
         B = sample.shape[0]
         t = torch.as_tensor(timesteps, device=sample.device)
@@ -322,17 +328,28 @@ class UNet2DConditionModel(nn.Module):
         h = self.conv_in(sample.to(dt).permute(0, 3, 1, 2))
         captured: Dict[str, List[torch.Tensor]] = {}
 
+        def res(resnet, h):
+            return rm.call(resnet, h, temb, remat=rm.remat_at(remat, h.shape[2]))
+
+        def with_maps(tx):
+            def run(h, ctx):
+                sink: List[torch.Tensor] = []
+                return (tx(h, ctx, sink), *sink)
+            return run
+
         def attend(tx, h, place):
             key = f"{place}_{h.shape[2]}"
+            at = rm.remat_at(remat, h.shape[2])
             if not capture or (capture_layers and key not in capture_layers):
-                return tx(h, ctx)
-            sink = captured.setdefault(key, [])
-            return tx(h, ctx, sink)
+                return rm.call(tx, h, ctx, remat=at)
+            out, *maps = rm.call(with_maps(tx), h, ctx, remat=at)
+            captured.setdefault(key, []).extend(maps)
+            return out
 
         stack = [h]
         for block in self.down_blocks:
             for j, resnet in enumerate(block.resnets):
-                h = resnet(h, temb)
+                h = res(resnet, h)
                 if block.attentions is not None:
                     h = attend(block.attentions[j], h, "down")
                 stack.append(h)
@@ -340,13 +357,13 @@ class UNet2DConditionModel(nn.Module):
                 h = block.resample(h)
                 stack.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
+        h = res(self.mid_block.resnets[0], h)
         h = attend(self.mid_block.attentions[0], h, "mid")
-        h = self.mid_block.resnets[1](h, temb)
+        h = res(self.mid_block.resnets[1], h)
 
         for block in self.up_blocks:
             for j, resnet in enumerate(block.resnets):
-                h = resnet(torch.cat([h, stack.pop()], dim=1), temb)
+                h = res(resnet, torch.cat([h, stack.pop()], dim=1))
                 if block.attentions is not None:
                     h = attend(block.attentions[j], h, "up")
             h = block.resample(h)

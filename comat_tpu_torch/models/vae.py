@@ -1,12 +1,16 @@
-"""VAE decoder (AutoencoderKL decode path) in PyTorch.
+"""The VAE (AutoencoderKL) in PyTorch: the decoder the train step
+differentiates through, and the encoder.
 
-Port of comat_tpu/models/vae.py, decoder only (the encoder is not ported
-yet). Its 3x3 convs are `Conv3x3` modules, so the large ones go to the
-conv kernel; its single-head mid-block attention goes through
-`multi_head_attention(num_heads=1)`, so the 4096-token one at 512^2 goes
-to the flash-attention kernel. GroupNorm eps is 1e-6 throughout.
-Parameter names follow diffusers' AutoencoderKL (`post_quant_conv`,
-`decoder.{conv_in, mid_block, up_blocks, conv_norm_out, conv_out}`).
+Port of comat_tpu/models/vae.py (`VAEDecoder`, `VAEEncoder`,
+`AutoencoderKL`). The 3x3 stride-1 convs are `Conv3x3` modules, so the
+large ones go to the conv kernel; the single-head mid-block attention goes
+through `multi_head_attention(num_heads=1)`, so the 4096-token one at
+512^2 goes to the flash-attention kernel. GroupNorm eps is 1e-6
+throughout. Parameter names follow diffusers' AutoencoderKL
+(`encoder.{conv_in, down_blocks, mid_block, conv_norm_out, conv_out}`,
+`quant_conv`, `post_quant_conv`, `decoder.{conv_in, mid_block, up_blocks,
+conv_norm_out, conv_out}`). `decode(..., remat=True)` checkpoints each
+decoder resnet block, as JAX's `remat_blocks` does.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from comat_tpu_torch.config import VAEConfig
+from comat_tpu_torch.models import remat as rm
 from comat_tpu_torch.models.conv import Conv3x3
 from comat_tpu_torch.ops.attention import multi_head_attention
 
@@ -70,10 +75,10 @@ class _MidBlock(nn.Module):
         ])
         self.attentions = nn.ModuleList([VAEAttention(ch, groups, **kw)])
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        h = self.resnets[0](h)
+    def forward(self, h: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        h = rm.call(self.resnets[0], h, remat=remat)
         h = self.attentions[0](h)
-        return self.resnets[1](h)
+        return rm.call(self.resnets[1], h, remat=remat)
 
 
 class _Upsampler(nn.Module):
@@ -98,9 +103,9 @@ class _UpBlock(nn.Module):
             nn.ModuleList([_Upsampler(ch, **kw)]) if upsample else None
         )
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, remat: bool = False) -> torch.Tensor:
         for resnet in self.resnets:
-            h = resnet(h)
+            h = rm.call(resnet, h, remat=remat)
         if self.upsamplers is not None:
             h = self.upsamplers[0](h)
         return h
@@ -126,27 +131,102 @@ class Decoder(nn.Module):
         self.conv_out = Conv3x3(rev[-1], cfg.in_channels,
                                 dtype=torch.float32, device=device)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid_block(self.conv_in(z))
+    def forward(self, z: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        h = self.mid_block(self.conv_in(z), remat)
         for block in self.up_blocks:
-            h = block(h)
+            h = block(h, remat)
         return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
-class VAEDecoder(nn.Module):
-    """latents (B, h, w, 4), already divided by the scaling factor ->
-    image in [-1, 1] (B, 8h, 8w, 3), fp32."""
+class _Downsampler(nn.Module):
+    """3x3 stride-2 conv after padding one row and column at the bottom
+    and right (JAX: padding ((0, 1), (0, 1)))."""
+
+    def __init__(self, ch: int, dtype, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(ch, ch, 3, stride=2, dtype=dtype, device=device)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(h, (0, 1, 0, 1)))
+
+
+class _DownBlock(nn.Module):
+    def __init__(self, cin: int, ch: int, layers: int, groups: int,
+                 downsample: bool, dtype, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.resnets = nn.ModuleList([
+            VAEResnetBlock(cin if j == 0 else ch, ch, groups, **kw)
+            for j in range(layers)
+        ])
+        self.downsamplers = (
+            nn.ModuleList([_Downsampler(ch, **kw)]) if downsample else None
+        )
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        for resnet in self.resnets:
+            h = resnet(h)
+        if self.downsamplers is not None:
+            h = self.downsamplers[0](h)
+        return h
+
+
+class Encoder(nn.Module):
+    """image (B, C, H, W) -> the moments (B, 2 * latent_channels, H/8,
+    W/8) before `quant_conv`; the output conv runs in fp32, as in JAX."""
+
+    def __init__(self, cfg: VAEConfig, device=None):
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        g = cfg.norm_num_groups
+        chs = cfg.block_out_channels
+        self.conv_in = Conv3x3(cfg.in_channels, chs[0], **kw)
+        self.down_blocks = nn.ModuleList()
+        cur = chs[0]
+        for i, ch in enumerate(chs):
+            self.down_blocks.append(_DownBlock(
+                cur, ch, cfg.layers_per_block, g, i < len(chs) - 1, **kw))
+            cur = ch
+        self.mid_block = _MidBlock(chs[-1], g, **kw)
+        self.conv_norm_out = nn.GroupNorm(g, chs[-1], eps=1e-6, **kw)
+        self.conv_out = Conv3x3(chs[-1], 2 * cfg.latent_channels,
+                                dtype=torch.float32, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            h = block(h)
+        h = self.mid_block(h)
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+
+class AutoencoderKL(nn.Module):
+    """The pipeline's VAE. `decode` (also `forward`): latents (B, h, w,
+    4), already divided by the scaling factor -> image in [-1, 1]
+    (B, 8h, 8w, 3), fp32. `encode`: image (B, H, W, 3) in [-1, 1] ->
+    (mean, logvar), each (B, H/8, W/8, 4) in fp32, logvar clipped to
+    [-30, 20]."""
 
     def __init__(self, cfg: VAEConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.post_quant_conv = nn.Conv2d(
-            cfg.latent_channels, cfg.latent_channels, 1, dtype=cfg.dtype,
-            device=device,
-        )
+        lat = cfg.latent_channels
+        self.encoder = Encoder(cfg, device)
+        self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1, dtype=torch.float32,
+                                    device=device)
+        self.post_quant_conv = nn.Conv2d(lat, lat, 1, dtype=cfg.dtype,
+                                         device=device)
         self.decoder = Decoder(cfg, device)
 
-    def forward(self, latents: torch.Tensor) -> torch.Tensor:
+    def decode(self, latents: torch.Tensor, remat: bool = False) -> torch.Tensor:
         z = latents.to(self.cfg.dtype).permute(0, 3, 1, 2)
-        img = self.decoder(self.post_quant_conv(z))
+        img = self.decoder(self.post_quant_conv(z), remat)
         return img.permute(0, 2, 3, 1)
+
+    forward = decode
+
+    def encode(self, images: torch.Tensor):
+        x = images.to(self.cfg.dtype).permute(0, 3, 1, 2)
+        moments = self.quant_conv(self.encoder(x).float()).permute(0, 2, 3, 1)
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)

@@ -1,9 +1,9 @@
 """Text-to-image generation CLI for the PyTorch port.
 
-Port of comat_tpu/tools/generate.py: prompts -> PNG images with the DDPM
-or DDIM sampler, on CUDA unless `--device cpu`. Weights are drawn from
-`--seed` (loading a diffusers snapshot and training checkpoints is not
-ported yet). Example:
+Port of comat_tpu/tools/generate.py: prompts -> PNG images with the
+DDPM, DDIM or DPM++ 2M sampler, on CUDA unless `--device cpu`. Weights
+are drawn from `--seed` (loading a diffusers snapshot and training
+checkpoints is not ported yet). Example:
 
     python -m comat_tpu_torch.tools.generate --tiny --device cpu \\
         --prompt "a red cube"
@@ -26,7 +26,7 @@ def parse_args(argv=None):
     p.add_argument("--out-dir", default="generated")
     p.add_argument("--num-inference-steps", type=int, default=50)
     p.add_argument("--guidance-scale", type=float, default=7.5)
-    p.add_argument("--scheduler", default="ddpm", choices=["ddpm", "ddim"])
+    p.add_argument("--scheduler", default="ddpm", choices=["ddpm", "ddim", "dpmpp"])
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tokenizer-dir", default=None)

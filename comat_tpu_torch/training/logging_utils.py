@@ -1,0 +1,77 @@
+"""Metrics and logging for the trainer.
+
+The port's copy of the host side of comat_tpu/training/logging_utils.py:
+python logging to the console and `<output_dir>/log.txt`, a JSONL scalar
+stream `<output_dir>/metrics.jsonl` keyed as the reference logs
+(train_loss, step_loss, lr, the reward breakdown, G/D loss, token/pixel
+loss, reward_norm; training_script.py:667-706), validation images as PNG
+files under `<output_dir>/validation_images/`, and a wall-clock step
+timer. The PNGs are written with the standard library (`write_png`); a
+failed write raises. One process, so no rank gating; no tensorboard.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+from comat_tpu_torch.tools.generate import write_png
+
+_FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
+
+
+def set_logger(output_dir: Optional[str] = None) -> logging.Logger:
+    logging.basicConfig(level=logging.INFO, format=_FORMAT)
+    logger = logging.getLogger("comat_tpu_torch")
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        path = os.path.abspath(os.path.join(output_dir, "log.txt"))
+        if not any(getattr(h, "baseFilename", None) == path for h in logger.handlers):
+            fh = logging.FileHandler(path)
+            fh.setFormatter(logging.Formatter(_FORMAT))
+            logger.addHandler(fh)
+    return logger
+
+
+class MetricsWriter:
+    """metrics.jsonl (appended, one record per step) and PNG images."""
+
+    def __init__(self, output_dir: str):
+        os.makedirs(output_dir, exist_ok=True)
+        self.f = open(os.path.join(output_dir, "metrics.jsonl"), "a")
+        self.img_dir = os.path.join(output_dir, "validation_images")
+
+    def log(self, metrics: Dict[str, float], step: int) -> None:
+        rec = {"step": int(step), "time": time.time()}
+        rec.update({k: float(v) for k, v in metrics.items()})
+        self.f.write(json.dumps(rec) + "\n")
+        self.f.flush()
+
+    def log_images(self, tag: str, images, step: int) -> None:
+        """NHWC float [0, 1] images -> `<tag>_<step>_<i>.png` (the
+        validation grids of training_script.py:485-489)."""
+        os.makedirs(self.img_dir, exist_ok=True)
+        arr = (np.clip(np.asarray(images, np.float32), 0, 1) * 255).astype(np.uint8)
+        for i, im in enumerate(arr):
+            write_png(os.path.join(self.img_dir, f"{tag}_{step}_{i}.png"), im)
+
+    def close(self) -> None:
+        self.f.close()
+
+
+class StepTimer:
+    """Wall-clock seconds between ticks (per-step time, images/sec)."""
+
+    def __init__(self):
+        self.t = None
+
+    def tick(self) -> float:
+        now = time.perf_counter()
+        dt = 0.0 if self.t is None else now - self.t
+        self.t = now
+        return dt

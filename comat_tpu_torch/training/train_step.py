@@ -4,10 +4,12 @@ GAN and attribute concentration.
 Port of comat_tpu/training/train_step.py (`TrainConfig`, `DiscState`,
 `partition_params`, `partition_disc_params`, `make_optimizer`,
 `make_d_optimizer`, `init_disc_state`, `sample_trained_idx`,
-`make_loss_fn`, `make_train_step`) without 8-bit Adam, remat, the int8
-pass 1 or gradient accumulation: each of those raises
-`NotImplementedError` naming its ROADMAP item. One step: encode the
-prompts, pass 1 (50 no-grad CFG UNet calls with LoRA fused), pass 2 (the
+`make_loss_fn`, `make_train_step`) without 8-bit Adam, the int8 pass 1
+or gradient accumulation: each of those raises `NotImplementedError`
+naming its ROADMAP item. One step: encode the prompts, pass 1 (50
+no-grad CFG UNet calls with LoRA fused; unfused under
+`gradient_checkpointing`, which also checkpoints the UNet's blocks in the
+replay's recompute and the decoder's resnet blocks), pass 2 (the
 K cached-primal replay segments, and with attribute concentration the
 capture forwards at A of them), VAE decode with gradient, crop jitter,
 the BLIP caption loss and the reward-gradient tap, the GAN's G loss
@@ -71,7 +73,11 @@ class TrainConfig:
     mask_pixel_loss_weight: float = 5e-5
     gradient_accumulation_steps: int = 1
     use_8bit_adam: bool = False     # --use_8bit_adam
+    # --gradient_checkpointing: block remat (UNet in the replay, decoder)
+    # and pass 1 unfused (no LoRA-free twin)
     gradient_checkpointing: bool = False
+    # --remat_min_res R: remat only the UNet blocks at resolution >= R
+    # (and every decoder block); pass 1 stays fused unless the flag above
     remat_min_res: Optional[int] = None
     pass1_int8: bool = False
     textenc_lr: Optional[float] = None   # --textenc_lora_lr
@@ -85,8 +91,6 @@ class TrainConfig:
 # its title in Queue 1.
 _NOT_PORTED = (
     ("use_8bit_adam", "ROADMAP Queue 1: opt-in extras (8-bit Adam)"),
-    ("gradient_checkpointing", "ROADMAP Queue 1: remat and the memory-tight flag"),
-    ("remat_min_res", "ROADMAP Queue 1: remat and the memory-tight flag"),
     ("pass1_int8", "ROADMAP Queue 1: opt-in extras (W8A8 pass 1)"),
 )
 
@@ -108,13 +112,14 @@ def partition_params(
 ) -> Dict[str, torch.nn.Parameter]:
     """Mark the trainable tensors of the pipeline and return them by name
     ("unet.<name>", "vae.<name>", "text.<name>"): the UNet's LoRA factors,
-    and the VAE decoder or the text encoder with the flags of the same
-    names. Every other parameter is set frozen (`requires_grad` off).
+    and the whole VAE (encoder and decoder, as JAX marks its `vae`
+    subtree) or the text encoder with the flags of the same names. Every
+    other parameter is set frozen (`requires_grad` off). The encoder gets
+    no gradient (the step only decodes), so AdamW's weight decay alone
+    moves it, as in JAX.
 
     A tensor of a bf16 tower stays bf16 here, the module's working copy;
-    the optimizer keeps its fp32 master (`ClippedAdamW`). JAX's
-    `tune_vae` also trains the VAE encoder, which the port does not have
-    (ROADMAP Queue 3)."""
+    the optimizer keeps its fp32 master (`ClippedAdamW`)."""
     marks = [
         (f"{tower}.{name}", p, is_lora_path(name)
          or (tune_vae and tower == "vae")
@@ -143,10 +148,18 @@ class ClippedAdamW:
     That is the arithmetic of JAX's fp32 Flax parameter under a bf16
     module: the module casts the fp32 leaf to bf16 (the working copy),
     the cast's VJP turns the bf16 cotangent into an fp32 gradient, optax
-    updates the fp32 leaf, and the next forward casts it again. One
-    difference: where a step uses a tensor twice (the text encoder runs
-    on the prompts and on the null prompts), autograd sums the two bf16
-    cotangents in bf16, JAX in fp32 after the casts.
+    updates the fp32 leaf, and the next forward casts it again. A bf16
+    tensor's master requires grad: the pipeline runs each use of the
+    tensor on its own view of the working copy whose backward hands the
+    cotangent to the master in fp32 (`DiffusionPipeline.set_masters`), so
+    two uses in a step (the text encoder on the prompts and on the null
+    prompts) sum in fp32, as in JAX. A gradient on the working copy
+    itself (a caller that ran the module directly) is cast and added.
+
+    `lr_schedule(count)` -> learning rate, evaluated before each update
+    at the number of updates done (optax's `count`); the text group then
+    takes it times textenc_lr / learning_rate, as JAX's `make_optimizer`
+    does. Without it the learning rates are constant.
 
     The clip is written as optax writes it: gradients are left as they are
     when their global norm is below `max_norm`, else divided by the norm
@@ -158,9 +171,12 @@ class ClippedAdamW:
     decay scaled by the learning rate)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig,
-                 initial_masters: Optional[Mapping[str, torch.Tensor]] = None):
+                 initial_masters: Optional[Mapping[str, torch.Tensor]] = None,
+                 lr_schedule: Optional[Callable[[int], float]] = None):
         self.params = params
         self.max_norm = cfg.max_grad_norm
+        self.lr_schedule = lr_schedule
+        self.count = 0
         initial_masters = initial_masters or {}
         self.masters: Dict[str, torch.Tensor] = {}
         with torch.no_grad():
@@ -174,15 +190,19 @@ class ClippedAdamW:
                                      f"tensor {tuple(p.shape)}")
                 master = src.detach().to(p.device, torch.float32, copy=True)
                 p.copy_(master)
-                self.masters[name] = master
+                self.masters[name] = master.requires_grad_()
         main = [m for n, m in self.masters.items() if not n.startswith("text.")]
         text = [m for n, m in self.masters.items() if n.startswith("text.")]
-        groups = [{"params": main}]
+        groups = [{"params": main, "lr": cfg.learning_rate}]
         if text:
             groups.append({"params": text, "lr": cfg.textenc_lr
                            if cfg.textenc_lr is not None else cfg.learning_rate})
+        groups = [g for g in groups if g["params"]]
+        # each group's rate as a fraction of the schedule's
+        self._ratios = [g["lr"] / cfg.learning_rate if cfg.learning_rate else 0.0
+                        for g in groups]
         self.adam = torch.optim.AdamW(
-            [g for g in groups if g["params"]], lr=cfg.learning_rate,
+            groups, lr=cfg.learning_rate,
             betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
             weight_decay=cfg.adam_weight_decay,
         )
@@ -199,28 +219,51 @@ class ClippedAdamW:
         own `.grad` are left as the backward wrote them."""
         for name, p in self.params.items():
             master = self.masters[name]
-            if master is not p:
-                master.grad = (p.grad.float() if p.grad is not None
-                               else torch.zeros_like(master))
-            elif p.grad is None:
-                p.grad = torch.zeros_like(p)
+            if master is not p and p.grad is not None:
+                g = p.grad.float()
+                master.grad = g if master.grad is None else master.grad + g
+            if master.grad is None:
+                master.grad = torch.zeros_like(master)
         grads = [m.grad for m in self.masters.values()]
         norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         if float(norm) >= self.max_norm:
             for g in grads:
                 g.div_(norm).mul_(self.max_norm)
+        if self.lr_schedule is not None:
+            lr = float(self.lr_schedule(self.count))
+            for group, ratio in zip(self.adam.param_groups, self._ratios):
+                group["lr"] = lr * ratio
         self.adam.step()
+        self.count += 1
         for name, p in self.params.items():
             if self.masters[name] is not p:
                 p.copy_(self.masters[name])
         return norm
 
+    def state_dict(self) -> Dict[str, object]:
+        """The update count, the fp32 masters of bf16 tensors and AdamW's
+        state (moments and steps), for a checkpoint."""
+        return {"count": self.count, "adam": self.adam.state_dict(),
+                "masters": {n: m.detach() for n, m in self.masters.items()
+                            if m is not self.params[n]}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, object]) -> None:
+        """Restore `state_dict()`'s contents; each bf16 working copy is
+        re-derived from its restored master."""
+        self.count = int(state["count"])
+        for n, m in state["masters"].items():
+            self.masters[n].copy_(m)
+            self.params[n].copy_(self.masters[n])
+        self.adam.load_state_dict(state["adam"])
+
 
 def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
-                   initial_masters: Optional[Mapping[str, torch.Tensor]] = None
+                   initial_masters: Optional[Mapping[str, torch.Tensor]] = None,
+                   lr_schedule: Optional[Callable[[int], float]] = None,
                    ) -> ClippedAdamW:
     _check_ported(cfg)
-    return ClippedAdamW(params, cfg, initial_masters)
+    return ClippedAdamW(params, cfg, initial_masters, lr_schedule)
 
 
 def partition_disc_params(disc: Discriminator) -> Dict[str, torch.nn.Parameter]:
@@ -235,13 +278,15 @@ def partition_disc_params(disc: Discriminator) -> Dict[str, torch.nn.Parameter]:
     return trainable
 
 
-def make_d_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor]
-                     ) -> ClippedAdamW:
-    """D's optimizer, scripts/sd15.sh's (--learning_rate_D 2e-5,
-    --adam_beta1_D 0, --max_grad_norm_D 1, beta2 0.999): a global-norm
-    clip and AdamW with the generator's eps and weight decay."""
+def make_d_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
+                     lr: float = 2e-5, b1: float = 0.0, b2: float = 0.999,
+                     max_grad_norm: float = 1.0) -> ClippedAdamW:
+    """D's optimizer (defaults: scripts/sd15.sh's --learning_rate_D 2e-5,
+    --adam_beta1_D 0, --adam_beta2_D 0.999, --max_grad_norm_D 1): a
+    global-norm clip and AdamW at a constant rate, with the generator's
+    eps and weight decay."""
     return ClippedAdamW(params, dataclasses.replace(
-        cfg, learning_rate=2e-5, adam_b1=0.0, adam_b2=0.999, max_grad_norm=1.0,
+        cfg, learning_rate=lr, adam_b1=b1, adam_b2=b2, max_grad_norm=max_grad_norm,
         textenc_lr=None))
 
 
@@ -252,9 +297,10 @@ class DiscState(NamedTuple):
     optimizer: ClippedAdamW
 
 
-def init_disc_state(disc: Discriminator, cfg: TrainConfig) -> DiscState:
+def init_disc_state(disc: Discriminator, cfg: TrainConfig, **d_opt) -> DiscState:
+    """`d_opt`: `make_d_optimizer`'s keywords."""
     trainable = partition_disc_params(disc)
-    return DiscState(trainable, make_d_optimizer(cfg, trainable))
+    return DiscState(trainable, make_d_optimizer(cfg, trainable, **d_opt))
 
 
 def _make_null_ctx_for_d(pipeline: DiffusionPipeline):
@@ -285,14 +331,19 @@ def init_train_state(
     pipeline: DiffusionPipeline, cfg: TrainConfig, tune_vae: bool = False,
     tune_text_encoder: bool = False,
     initial_masters: Optional[Mapping[str, torch.Tensor]] = None,
+    lr_schedule: Optional[Callable[[int], float]] = None,
 ) -> TrainState:
     """`initial_masters`: fp32 tensors by trainable name ("vae.<name>",
     "text.<name>") that a bf16 tower's weights were rounded from, for a
     pipeline built from a JAX tree the tensors of
     `weights.from_jax_params` under their tower's prefix; without them the
-    masters are the stored weights upcast (`ClippedAdamW`)."""
+    masters are the stored weights upcast (`ClippedAdamW`). The pipeline
+    then runs its bf16 trained tensors through their masters
+    (`DiffusionPipeline.set_masters`)."""
     trainable = partition_params(pipeline, tune_vae, tune_text_encoder)
-    return TrainState(0, trainable, make_optimizer(cfg, trainable, initial_masters))
+    opt = make_optimizer(cfg, trainable, initial_masters, lr_schedule)
+    pipeline.set_masters({n: m for n, m in opt.masters.items() if m is not trainable[n]})
+    return TrainState(0, trainable, opt)
 
 
 class StepDraws(NamedTuple):
@@ -442,8 +493,15 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     logits of the final latents against "real" at the last inference
     timestep, weighted by `cfg.gan_loss_weight`; it reaches the latents
     and not D's tensors. `extra_losses(batch, image, result, draws)` ->
-    (loss to add, metrics), e.g. `training.attrcon.make_attrcon_extra_losses`."""
+    (loss to add, metrics), e.g. `training.attrcon.make_attrcon_extra_losses`.
+
+    `cfg.gradient_checkpointing` runs pass 1 unfused, as JAX does: the
+    pipeline must then hold no LoRA-free twin (`fuse_pass1=False`)."""
     _check_ported(cfg)
+    if (cfg.gradient_checkpointing and pipeline.cfg.lora_rank > 0
+            and pipeline.unet_inf is not None):
+        raise ValueError("gradient_checkpointing runs pass 1 unfused: build the "
+                         "pipeline with DiffusionPipeline(..., fuse_pass1=False)")
     t_final = int(inference_timesteps(cfg.total_step)[-1])
     null_ctx_for_d = _make_null_ctx_for_d(pipeline)
 
@@ -474,6 +532,7 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             train_text_encoder=cfg.train_text_encoder,
             latents0=draws.latents0, step_noise=draws.step_noise,
             capture=cfg.attrcon, capture_idx=draws.attrcon_draws, mark=mark,
+            remat=cfg.remat_min_res if cfg.remat_min_res else cfg.gradient_checkpointing,
         )
         mark("decoded")
         hook(image, "decode_bwd<")    # "decode_bwd>": see pipeline.forward

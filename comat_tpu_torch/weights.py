@@ -141,13 +141,13 @@ def _clip_rule(path: Tuple[str, ...]) -> Optional[Rule]:
 
 
 def _vae_rule(path: Tuple[str, ...]) -> Optional[Rule]:
-    if path[0] != "decoder":    # the encoder is not ported
+    top, p1, leaf = path[0], path[1], path[-1]
+    if top not in ("encoder", "decoder"):
         return None
-    p1, leaf = path[1], path[-1]
-    pre = "decoder."
-    if p1 == "post_quant_conv":
+    pre = f"{top}."
+    if p1 in ("post_quant_conv", "quant_conv"):
         name, fn = _leaf("conv", leaf)
-        return f"post_quant_conv.{name}", fn
+        return f"{p1}.{name}", fn
     if p1 in ("conv_in", "conv_out"):
         name, fn = _leaf("conv", leaf)
         return f"{pre}{p1}.{name}", fn
@@ -155,17 +155,17 @@ def _vae_rule(path: Tuple[str, ...]) -> Optional[Rule]:
         name, fn = _leaf("norm", leaf)
         return f"{pre}conv_norm_out.{name}", fn
     m = re.fullmatch(r"mid_resnet_(\d+)", p1)
-    m2 = re.fullmatch(r"up_(\d+)_resnet_(\d+)", p1)
+    m2 = re.fullmatch(r"(up|down)_(\d+)_resnet_(\d+)", p1)
     if m or m2:
         base = (f"{pre}mid_block.resnets.{m.group(1)}" if m else
-                f"{pre}up_blocks.{m2.group(1)}.resnets.{m2.group(2)}")
+                f"{pre}{m2.group(1)}_blocks.{m2.group(2)}.resnets.{m2.group(3)}")
         sub = path[2]
         name, fn = _leaf("norm" if sub.startswith("norm") else "conv", leaf)
         return f"{base}.{sub}.{name}", fn
-    m = re.fullmatch(r"up_(\d+)_upsample", p1)
+    m = re.fullmatch(r"(up|down)_(\d+)_(upsample|downsample)", p1)
     if m:
         name, fn = _leaf("conv", leaf)
-        return f"{pre}up_blocks.{m.group(1)}.upsamplers.0.conv.{name}", fn
+        return f"{pre}{m.group(1)}_blocks.{m.group(2)}.{m.group(3)}rs.0.conv.{name}", fn
     if p1 == "mid_attn":
         base = f"{pre}mid_block.attentions.0"
         sub = path[2]
@@ -300,9 +300,9 @@ def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"unet", "text", "vae", "blip", "disc"} JAX parameter trees, as
     numpy arrays -> state dicts of the port's modules under the same keys
     (CPU fp32 tensors; the modules cast them to their own dtypes on load).
-    "disc" is a discriminator's tree (`losses.gan.Discriminator`). Keys
-    missing from `tree` are missing from the result; leaves the port does
-    not hold (the VAE encoder) are dropped."""
+    "disc" is a discriminator's tree (`losses.gan.Discriminator`); "vae"
+    the whole AutoencoderKL, encoder and decoder. Keys missing from
+    `tree` are missing from the result."""
     rules = {"unet": _unet_rule, "text": _clip_rule, "vae": _vae_rule,
              "blip": _blip_rule}
     out = {k: _convert(tree[k], rule) for k, rule in rules.items() if k in tree}

@@ -38,7 +38,11 @@ def test_importing_every_module_loads_no_jax():
             "comat_tpu_torch.training.attrcon",
             "comat_tpu_torch.segmentation.interface",
             "comat_tpu_torch.text.linguistics", "comat_tpu_torch.text.miniparse",
-            "comat_tpu_torch.text.parse_cache"} <= set(mods)
+            "comat_tpu_torch.text.parse_cache", "comat_tpu_torch.train",
+            "comat_tpu_torch.training.trainer", "comat_tpu_torch.training.arguments",
+            "comat_tpu_torch.training.data", "comat_tpu_torch.training.checkpoints",
+            "comat_tpu_torch.training.logging_utils",
+            "comat_tpu_torch.models.remat"} <= set(mods)
     res = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -67,10 +71,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         from comat_tpu_torch.tools.generate import main
         from comat_tpu_torch.config import BLIPConfig
         from comat_tpu_torch.models.blip import make_blip
+        from comat_tpu_torch.train import main as train_main
         cfg = make_pipeline_config("sd_1_5", lora_rank=0, resolution=64, tiny=True)
         for call in (lambda: DiffusionPipeline(cfg),
                      lambda: main(["--tiny", "--prompt", "a cat"]),
-                     lambda: make_blip(BLIPConfig.tiny())):
+                     lambda: make_blip(BLIPConfig.tiny()),
+                     lambda: train_main(["--tiny_models", "--training_prompts",
+                                         "collected_data/abc5k.txt",
+                                         "--output_dir", "build/no_card"])):
             try:
                 call()
             except RuntimeError as e:
@@ -79,4 +87,4 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
                 print("RAN")
     """)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count("RAISED") == 3, res.stdout
+    assert res.stdout.count("RAISED") == 4, res.stdout

@@ -35,7 +35,7 @@ from comat_tpu_torch.diffusion import schedulers as tsched
 from comat_tpu_torch.models.clip_text import CLIPTextEncoder
 from comat_tpu_torch.models.lora import fuse_lora
 from comat_tpu_torch.models.unet import UNet2DConditionModel
-from comat_tpu_torch.models.vae import VAEDecoder
+from comat_tpu_torch.models.vae import AutoencoderKL
 from comat_tpu_torch.text import tokenizer as ttok
 from comat_tpu_torch.weights import from_jax_params
 
@@ -174,7 +174,7 @@ def test_vae_decode_matches():
     params = jax.jit(model.init)(KEY, jnp.zeros((1, 64, 64, 3)))
     want = jax.jit(lambda p, z: model.apply(p, z, method=JVAE.decode))(
         params, jnp.asarray(z))
-    vae = VAEDecoder(tcfg.VAEConfig.tiny())
+    vae = AutoencoderKL(tcfg.VAEConfig.tiny())
     vae.load_state_dict(from_jax_params({"vae": _np(params)})["vae"])
     with torch.no_grad():
         got = vae(torch.from_numpy(z))

@@ -187,7 +187,8 @@ def fp32_grads(case):
     trainable = tts.partition_params(pipe, tune_vae=True, tune_text_encoder=True)
     loss, _ = tts.make_loss_fn(pipe, blip, tcfg)(case["batch"], case["draws"])
     loss.backward()
-    return {n: p.grad.numpy().astype(np.float64)
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
+            .astype(np.float64)
             for n, p in trainable.items() if n.split(".")[0] in TOWERS}
 
 
@@ -195,8 +196,11 @@ def fp32_grads(case):
 def port_step(case):
     """One port step from the same weights in bf16, with those weights as
     the initial masters: the masters before, the step's gradients as the
-    backward left them (captured before the clip, which scales an fp32
-    tensor's own `.grad` in place), the state after, the metrics."""
+    backward left them on the masters (a bf16 tensor's lands on its fp32
+    master; captured before the clip, which scales them in place), the
+    state after, the metrics. The VAE encoder, which the step does not
+    run, gets no gradient; it is taken as zero, as the optimizer takes
+    it."""
     pipe, blip, tcfg = _port(case, torch.bfloat16)
     masters = {f"{tower}.{n}": t for tower in TOWERS
                for n, t in case["weights"][tower].items()}
@@ -204,13 +208,18 @@ def port_step(case):
                                  initial_masters=masters)
     before = {n: m.detach().clone() for n, m in state.optimizer.masters.items()}
     grads = {}
-    hooks = [p.register_post_accumulate_grad_hook(
-        lambda p, n=n: grads.__setitem__(n, p.grad.detach().float().clone()))
-        for n, p in state.trainable.items()]
+    hooks = [state.optimizer.masters[n].register_post_accumulate_grad_hook(
+        lambda t, n=n: grads.__setitem__(n, t.grad.detach().float().clone()))
+        for n in state.trainable]
     state, metrics = tts.make_train_step(pipe, blip, tcfg)(
         state, case["batch"], case["draws"])
     for h in hooks:
         h.remove()
+    unreached = [n for n in state.trainable if n not in grads]
+    assert unreached and all(n.startswith(("vae.encoder.", "vae.quant_conv."))
+                             for n in unreached)
+    for n in unreached:
+        grads[n] = torch.zeros_like(state.optimizer.masters[n]).detach()
     return dict(state=state, metrics=metrics, before=before, grads=grads)
 
 
@@ -254,10 +263,15 @@ def test_tower_gradients_match_jax(case, port_step, fp32_grads, tower):
     gradient stays below ZERO_LEAF_REL of the tower's largest (the key
     biases: a softmax cancels q.b) is rounding noise on both sides and is
     held to ZERO_LEAF_TOL of the largest gradient instead (measured
-    1.0e-3)."""
+    1.0e-3). A leaf no gradient reaches (the VAE encoder, which the step
+    does not run) is zero on all three sides, exactly."""
     grads, want, g32 = _bf16_grads(port_step), case["grads"], fp32_grads
     names = _tower(grads, tower)
     assert names and set(names) == set(_tower(want, tower))
+    unreached = [n for n in names if not g32[n].any() and not want[n].any()]
+    assert all(not grads[n].any() for n in unreached)
+    assert (len(unreached) > 0) == (tower == "vae")
+    names = [n for n in names if n not in unreached]
     scale = max(np.abs(want[n]).max() for n in names)
     rel, zero = {}, {}
     for n in names:
@@ -352,7 +366,9 @@ def test_working_copies_are_the_rounded_masters(port_step):
         master = state.optimizer.masters[n]
         assert master is not state.trainable[n]
         assert torch.equal(state.trainable[n].detach(), master.bfloat16())
-        assert not torch.equal(master, port_step["before"][n])
+        # a zero tensor without gradient (an encoder bias) stays zero
+        still = not port_step["grads"][n].any() and not master.any()
+        assert still or not torch.equal(master, port_step["before"][n]), n
 
 
 def _optax_update(cfg, params, grads, steps):

@@ -56,10 +56,14 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    its split (CUDA events) and peak memory;
 9. the trainer CLI: `comat_tpu_torch.train.main` with the flags of
    comat_tpu_torch/scripts/sd15.sh (the repo's scripts/sd15.sh, with
-   --gradient_checkpointing, plus --allow_smoke --seg_model
-   center_prior, the launcher's own defaults, not the caller's
-   environment), 512^2, batch 4, LoRA 128, 4 steps, one validation image
-   at step 0, 3 and 4 and a checkpoint at 3 and 4
+   --gradient_checkpointing and --seg_model gsam, plus --allow_smoke,
+   the launcher's own defaults, not the caller's environment): each step
+   split into the no-grad presample (pass 1 and the VAE decode), the
+   Grounded-SAM segmentation of its 4 images (GroundingDINO-T at 800^2
+   and FastSAM-x at 512^2, bf16, seeded weights) and the differentiable
+   step replaying pass 1 from the presample's tables; 512^2, batch 4,
+   LoRA 128, 4 steps, one validation image at step 0, 3 and 4 and a
+   checkpoint at 3 and 4
    (--validation_steps 3, --checkpoints_total_limit 2), against a
    GanLatentStore whose latents the VAE encoder made from seeded images
    (its own counted path); then a run resumed from its checkpoint-3
@@ -67,8 +71,21 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    checkpoint, --max_train_steps 4): the restored tensors equal those
    saved, and its step 4 (the 4th batch inside the first epoch of
    abc5k) ends with the uninterrupted run's checkpoint-4, bit for bit.
-   Seconds per step, its split, peak memory, the seconds of each
-   validation and the launches by role, each beside phase 8's.
+   Seconds per step, its split (s_presample, s_segment and its host
+   part among them), peak memory, the seconds of each validation and the
+   launches by role (the presample's decode a role of its own), each
+   beside phase 8's;
+10. Grounded-SAM parity: GroundingDINO-T (swint_ogc, 800^2 input) and
+   FastSAM-x at full width with seeded weights, fp32, one 512^2 image and
+   two nouns, on the card and on the CPU: boxes, token logits, FastSAM's
+   heads and protos within 1e-3 of each output's max abs (where the two
+   runs' two-stage query selections differ, only at scores tied within
+   that tolerance, the card runs again on the CPU's selection); the masks
+   the host decode makes from the card's outputs equal the CPU's, or
+   differ only where some score lies within the tolerance of its
+   threshold (the count of such scores printed). Then
+   `GroundedSAMSegmenter.batch` in bf16 at batch 4 (512^2, GroundingDINO
+   at 800^2), timed apart: the device forwards and the host decode.
 Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
 in the driven paths: generation, the reduced recipe's train step, the
@@ -132,6 +149,8 @@ SD15_LAUNCHER = os.path.join("comat_tpu_torch", "scripts", "sd15.sh")
 CLI_STEPS, CLI_RESUME = 4, 3
 CLI_LAUNCHES = {
     "pass1": {"flash_fwd": 750},
+    # the split step's presample decodes its latents, without gradient
+    "presample": {"flash_fwd": 1, "conv_fwd": 21},
     "replay": {"flash_fwd": 150, "dq": 75, "dkv": 75},
     "capture": {"flash_fwd": 60, "dq": 30, "dkv": 30},
     "decode": {"flash_fwd": 1, "dq": 1, "dkv": 1, "conv_fwd": 39, "conv_dx": 21},
@@ -160,7 +179,8 @@ FULL_STEPS = 3
 # once at batch 4 for the G loss (backward into the latents) and once at
 # batch 8 for its update (backward into its LoRA)
 FULL_ROLES = {
-    "pass1": ("pass1",),
+    "pass1": ("pass1", "presample_pass1"),
+    "presample": ("presample_decode",),
     "replay": ("replay_fwd", "replay_bwd"),
     "capture": ("capture_fwd", "capture_bwd"),
     "decode": ("decode_fwd", "decode_bwd"),
@@ -169,6 +189,7 @@ FULL_ROLES = {
 }
 FULL_LAUNCHES = {
     "pass1": {"flash_fwd": 750},
+    "presample": {},
     "replay": {"flash_fwd": 75, "dq": 75, "dkv": 75},
     "capture": {"flash_fwd": 60, "dq": 30, "dkv": 30},
     "decode": {"flash_fwd": 1, "dq": 1, "dkv": 1, "conv_fwd": 21, "conv_dx": 21},
@@ -1124,7 +1145,8 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
             f"{r['grad_norm']:.4e}, lr {r['lr']:g}; {r['sec_per_step']:.3f} s wall; "
             + ", ".join(f"{k} {r[k]:.3f}" for k in keys))
     median = _median(rows[1:], ("sec_per_step",) + keys)
-    seg_sum = sum(median[k] for k in ts.PHASES if k != "s_capture")
+    # s_capture lies inside s_pass2, s_segment_host inside s_segment
+    seg_sum = sum(median[k] for k in ts.PHASES if k not in ("s_capture", "s_segment_host"))
     log(f"  trainer_cli: {median['s_step']:.3f} s per step on the device "
         f"({median['sec_per_step']:.3f} s wall, median of steps 2-{CLI_STEPS}; "
         f"segments sum to {seg_sum:.3f} s), peak memory {peak:.1f} GiB, "
@@ -1133,10 +1155,16 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
         f"step {step} {sec:.3f} s" for step, sec in trainer.validation_times))
     log(f"  phase 8, same run: {full_median['s_step']:.3f} s per step on the device "
         f"({full_median['wall_s']:.3f} s wall), peak memory {full_peak:.1f} GiB")
+    log(f"  split step (median of steps 2-{CLI_STEPS}): presample decode "
+        f"{median['s_presample']:.3f} s (pass 1 {median['s_pass1']:.3f} s), Grounded-SAM "
+        f"{median['s_segment']:.3f} s: device {median['s_segment'] - median['s_segment_host']:.3f}"
+        f" s, host {median['s_segment_host']:.3f} s")
     for k in keys:
         log(f"    {k}: trainer_cli {median[k]:.3f} s, phase 8 {full_median[k]:.3f} s")
     want_roles = {role: {k: n * CLI_STEPS for k, n in c.items()}
                   for role, c in CLI_LAUNCHES.items()}
+    if not all(r["s_segment"] > 0 and r["s_presample"] > 0 for r in rows):
+        raise AssertionError(f"the trainer did not take the split step: {rows}")
     for role in FULL_ROLES:
         log(f"  launches by role, {CLI_STEPS} steps: {role} {roles[role]} (predicted "
             f"{want_roles[role]}; phase 8 per step { FULL_LAUNCHES[role] })")
@@ -1231,6 +1259,168 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     return cli_shapes, encode_shapes
 
 
+GSAM_TOL = 1e-3          # relative to each output's max abs
+GSAM_NOUNS = [["cube", "sphere"], ["cats", "umbrella"], ["bus", "horse"], ["cups", "table"]]
+
+
+def _gsam_near_threshold(seg, rows, gd_out, sam_out, tol):
+    """Scores of the CPU run within `tol` (in each output's own units) of
+    the threshold they are held to: box scores and noun-span maxima
+    (token probabilities against box_threshold / text_threshold), FastSAM
+    class probabilities against its conf 0.4, and the mask logits of every
+    anchor's proposal against 0 (probability 0.5). Returns counts by kind."""
+    import numpy as np
+
+    boxes, logits = (t.numpy() for t in gd_out)
+    outs, protos = sam_out
+    live = logits > -1e29
+    prob = 1.0 / (1.0 + np.exp(-np.where(live, logits, -80.0)))
+    t_p = tol * float(np.abs(logits[live]).max()) / 4       # sigmoid's slope <= 1/4
+    near = {"box_score": int((np.abs(prob.max(-1) - seg.box_threshold) <= t_p).sum())}
+    span_max = [prob[b][:, a:e].max(-1) for b, r in enumerate(rows) for a, e in r[5] if e > a]
+    near["noun_span"] = int(sum((np.abs(m - seg.text_threshold) <= t_p).sum() for m in span_max))
+    cls = np.concatenate([o["cls"].numpy().ravel() for o in outs])
+    t_c = tol * float(np.abs(cls).max()) / 4
+    near["fastsam_conf"] = int((np.abs(1 / (1 + np.exp(-cls)) - 0.4) <= t_c).sum())
+    mask_logits = np.einsum("bhwm,bnm->bnhw", protos.numpy(),
+                            np.concatenate([o["mc"].numpy().reshape(len(rows), -1,
+                                                                    seg.sam_cfg.num_masks)
+                                            for o in outs], 1))
+    near["mask_pixel"] = int((np.abs(mask_logits) <= tol * np.abs(mask_logits).max()).sum())
+    return near
+
+
+def phase_gsam(torch):
+    """Grounded-SAM at full width, card against CPU in fp32, then the bf16
+    batched segmenter at batch 4, its device forwards and host decode
+    timed apart. Returns the bf16 timings."""
+    import numpy as np
+
+    from comat_tpu_torch.segmentation.fastsam import YoloSegConfig, decode_predictions
+    from comat_tpu_torch.segmentation.gdino import GDinoConfig, ground_nouns
+    from comat_tpu_torch.segmentation.grounded_sam import GroundedSAMSegmenter, gdino_input
+
+    f32 = dict(sam_cfg=dataclasses.replace(YoloSegConfig.fastsam_x(), dtype=torch.float32),
+               gdino_cfg=dataclasses.replace(GDinoConfig.swint_ogc(), dtype=torch.float32),
+               gdino_resize=800)
+    t0 = time.perf_counter()
+    cpu = GroundedSAMSegmenter(device="cpu", seed=SEED + 21, **f32)
+    sam_sd, gd_sd = cpu.sam.state_dict(), cpu.gdino.state_dict()
+    gpu = GroundedSAMSegmenter(device="cuda", sam_params=sam_sd, gdino_params=gd_sd, **f32)
+    n_par = sum(p.numel() for m in (cpu.sam, cpu.gdino) for p in m.parameters())
+    log(f"  weights made in {time.perf_counter() - t0:.1f} s: {n_par / 1e6:.1f} M "
+        f"parameters (FastSAM-x {sum(p.numel() for p in cpu.sam.parameters()) / 1e6:.1f} M)")
+    image = torch.rand(1, 512, 512, 3, generator=torch.Generator().manual_seed(SEED + 23))
+    rows = cpu.text_rows(GSAM_NOUNS[:1], 1)
+
+    def run(seg, img, top_idx=None):
+        dev = seg.device
+        cat = lambda i: torch.from_numpy(np.concatenate([r[i] for r in rows])).to(dev)  # noqa: E731
+        with torch.no_grad():
+            boxes, logits, (score, idx) = seg.gdino(
+                gdino_input(img.to(dev), seg.gdino_resize), cat(1), cat(2), cat(3), cat(4),
+                top_idx=None if top_idx is None else top_idx.to(dev), return_selection=True)
+            outs, protos = seg.sam(img.to(dev))
+        cpu_ = lambda t: t.float().cpu()  # noqa: E731
+        return ((cpu_(boxes), cpu_(logits)), (cpu_(score), idx.cpu()),
+                ([{k: cpu_(v) for k, v in o.items()} for o in outs], cpu_(protos)))
+
+    t0 = time.perf_counter()
+    gd_c, sel_c, sam_c = run(cpu, image)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gd_g, sel_g, sam_g = run(gpu, image)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    differ = (sel_g[1] != sel_c[1])
+    n_sel = int(differ.sum())
+    if n_sel:
+        # positions whose selection differs: their scores tie within the tolerance
+        s_tol = GSAM_TOL * float(sel_c[0].abs().max())
+        ranked_c = sel_c[0][0, sel_c[1][0]]
+        ranked_g = sel_g[0][0, sel_g[1][0]]
+        gap = float((ranked_c - ranked_g).abs().max())
+        log(f"  two-stage selection: {n_sel} of {differ.numel()} positions differ, the "
+            f"ranked scores by at most {gap:.3e} (tolerance {s_tol:.3e}); the card runs "
+            "again on the CPU's selection")
+        if not gap <= s_tol:
+            raise AssertionError(f"query selection differs beyond ties: {gap:.3e}")
+        gd_g, _, sam_g = run(gpu, image, top_idx=sel_c[1])
+    rels = {}
+
+    def rel(name, g, c):
+        rels[name] = float((g - c).abs().max()) / max(float(c.abs().max()), 1e-12)
+
+    rel("boxes", gd_g[0], gd_c[0])
+    live = gd_c[1] > -1e29
+    if not torch.equal(gd_g[1] > -1e29, live):
+        raise AssertionError("token-logit masks differ")
+    rel("token_logits", gd_g[1][live], gd_c[1][live])
+    for i, (og, oc) in enumerate(zip(sam_g[0], sam_c[0])):
+        for k in ("box", "cls", "mc"):
+            rel(f"{k}{i}", og[k], oc[k])
+    rel("protos", sam_g[1], sam_c[1])
+    worst = max(rels, key=rels.get)
+    log(f"  card vs CPU (cpu {t_cpu:.1f} s, card {t_gpu:.1f} s), relative to each output's "
+        f"max abs: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    if not rels[worst] <= GSAM_TOL:
+        raise AssertionError(f"Grounded-SAM {worst} differs by {rels[worst]:.3e} > {GSAM_TOL}")
+    proposals = decode_predictions(*sam_c, cpu.sam_cfg)
+    grounded = ground_nouns(gd_c[0][0].numpy(), gd_c[1][0].numpy(), rows[0][5],
+                            cpu.box_threshold, cpu.text_threshold)
+    probs = torch.sigmoid(gd_c[1][0][live[0]])
+    log(f"  CPU run: {len(proposals[0]['boxes'])} FastSAM proposals kept, class "
+        f"logits in [{min(float(o['cls'].min()) for o in sam_c[0]):.2f}, "
+        f"{max(float(o['cls'].max()) for o in sam_c[0]):.2f}]; boxes grounded per noun "
+        f"{ {GSAM_NOUNS[0][k]: len(v) for k, v in grounded.items()} }, live token "
+        f"probabilities in [{float(probs.min()):.3f}, {float(probs.max()):.3f}]")
+    masks = [cpu.decode_masks(rows, gd[0].numpy(), gd[1].numpy(),
+                        decode_predictions(*sam, cpu.sam_cfg), 512, 512)
+             for gd, sam in ((gd_c, sam_c), (gd_g, sam_g))]
+    diff_px = sum(int((a != b).sum()) for ra, rb in zip(*masks) for a, b in zip(ra, rb))
+    near = _gsam_near_threshold(cpu, rows, gd_c, sam_c, GSAM_TOL)
+    log(f"  masks from the card's outputs against the CPU's: {diff_px} pixels differ of "
+        f"{sum(m.size for r in masks[1] for m in r)}; mask coverage "
+        f"{[float(m.mean()) for m in masks[1][0]]}; scores within the tolerance of "
+        f"their thresholds: {near}")
+    if diff_px and not sum(near.values()):
+        raise AssertionError("masks differ with no score near its threshold")
+    del cpu, gpu
+
+    # the batched segmenter in bf16 at batch 4, as the trainer runs it
+    seg = GroundedSAMSegmenter(device="cuda", sam_params=sam_sd, gdino_params=gd_sd,
+                               gdino_resize=800)
+    images = torch.rand(TRAIN_BATCH, 512, 512, 3, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 25))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        marks = {}
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks[name] = time.perf_counter()
+
+        t0 = time.perf_counter()
+        out = seg.batch(images, GSAM_NOUNS, mark=mark)
+        t_end = time.perf_counter()
+        times.append((marks["segment_device"] - t0, t_end - marks["segment_device"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dev_s, host_s = sorted(times)[1]
+    log(f"  batch of {TRAIN_BATCH} in bf16 (3 runs, the median's): device forwards "
+        f"{dev_s:.3f} s, host decode {host_s:.3f} s (runs: "
+        + ", ".join(f"{d:.3f} + {h:.3f}" for d, h in times)
+        + f"); peak memory {peak:.2f} GiB; masks per image {[len(m) for m in out]}, "
+        f"coverage {[round(float(np.mean(m)), 3) for r in out for m in r]}")
+    if [len(m) for m in out] != [len(n) for n in GSAM_NOUNS] or not all(
+            m.shape == (512, 512) for r in out for m in r):
+        raise AssertionError(f"bad batched masks {[len(m) for m in out]}")
+    del seg, images
+    torch.cuda.empty_cache()
+    return {"device_s": dev_s, "host_s": host_s, "peak_gib": peak}
+
+
 def main() -> int:
     import torch
 
@@ -1249,7 +1439,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("[1/9] build")
+    log("[1/10] build")
     t0 = time.perf_counter()
     paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
@@ -1262,35 +1452,39 @@ def main() -> int:
     phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    log("[2/9] kernels against their plain versions")
+    log("[2/10] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/9] generation: SD1.5 fp32 256^2 card vs CPU")
+    log("[3/10] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    log("[4/9] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
+    log("[4/10] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    log("[5/9] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    log("[5/10] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
     gen_shapes = phase_main(torch, kernels)
 
-    log("[6/9] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    log("[6/10] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
     train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    log("[7/9] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    log("[7/10] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
     tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
 
-    log("[8/9] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
+    log("[8/10] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
     full_shapes, full_median, full_peak = phase_train_full(torch, fa, cv, kernels, pipe,
                                                            blip, batch)
     del pipe, blip, batch
 
-    log("[9/9] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags, 512^2, batch 4, "
-        f"{CLI_STEPS} steps, then a run resumed at step {CLI_RESUME}")
+    log("[9/10] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
+        f"512^2, batch 4, {CLI_STEPS} steps, then a run resumed at step {CLI_RESUME}")
     cli_shapes, encode_shapes = phase_trainer_cli(torch, fa, cv, kernels, full_median,
                                                   full_peak)
+
+    log("[10/10] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
+        "then bf16 at batch 4")
+    phase_gsam(torch)
 
     # launches: those of the driven paths, each counted from 0 just before
     # it: generation, the reduced recipe's train step, the same with the

@@ -392,10 +392,13 @@ class DiffusionPipeline:
         latents0: Optional[torch.Tensor] = None,
         step_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        mark: Optional[Callable[[str], None]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Pass 1 alone, for callers that must see the image before the
-        differentiable pass: returns (image, eps_table, latents_traj); the
-        tables go to `forward(presampled=...)` with the same `step_noise`."""
+        differentiable pass: returns (image, eps_table, latents_traj), the
+        image unclamped; the tables go to `forward(presampled=...)` with the
+        same `step_noise`. Pass 1 runs as in `forward`; `mark("pass1")` is
+        called after it, before the decode."""
         enc = self.encode_prompt(input_ids, eos_positions)
         nenc = self.encode_prompt(null_ids, null_eos_positions)
         eps_model = self._pass1_eps_model(
@@ -406,11 +409,15 @@ class DiffusionPipeline:
                 generator, enc.context.shape[0], self.cfg.resolution,
                 self.cfg.resolution, self.device,
             )
+        if step_noise is not None:
+            step_noise = step_noise.to(self.device, torch.float32)
         x, eps_table, traj = sample_inference(
             eps_model,
             make_sampler_coeffs(self.schedule, num_inference_steps, kind="ddpm"),
             latents0.to(self.device), generator, step_noise=step_noise,
         )
+        if mark is not None:
+            mark("pass1")
         return self.decode_image(x), eps_table, traj
 
     # ---- inference ----

@@ -1,9 +1,12 @@
 #!/bin/bash
 # SD1.5 CoMat recipe on one NVIDIA card with the PyTorch port: the flags
-# of the repo's scripts/sd15.sh (the reference's training run), passed to
-# python -m comat_tpu_torch.train. Until weights and Grounded-SAM can be
-# loaded, it adds --allow_smoke (seeded weights, hash tokenizers) and
-# --seg_model center_prior. Extra flags follow, e.g. --max_train_steps 3.
+# of the repo's scripts/sd15.sh (the reference's training run, Grounded-SAM
+# masks included), passed to python -m comat_tpu_torch.train. Until the
+# SD1.5 and BLIP snapshots can be loaded, it adds --allow_smoke (seeded
+# weights, hash tokenizers). Grounded-SAM's weights load with
+# --fastsam_checkpoint FastSAM-x.pt --gdino_checkpoint
+# groundingdino_swint_ogc.pth --gdino_tokenizer_vocab vocab.txt, else they
+# are seeded. Extra flags follow, e.g. --max_train_steps 3.
 python -m comat_tpu_torch.train \
   --pretrain_model_name sd_1_5_attrcon \
   --pretrain_model "${PRETRAIN_MODEL:-runwayml/stable-diffusion-v1-5}" \
@@ -29,5 +32,5 @@ python -m comat_tpu_torch.train \
   --mask_token_loss_weight 1e-3 --mask_pixel_loss_weight 5e-5 \
   --validation_prompts "A man walking on street" \
   --validation_steps 200 \
-  --allow_smoke --seg_model center_prior \
+  --allow_smoke \
   "$@"

@@ -1,21 +1,27 @@
 """Segmentation masks for the grounding losses: one mask per noun.
 
 Port of comat_tpu/segmentation/interface.py (`SegmenterHolder`,
-`CenterPriorSegmenter`, `PrecomputedMaskSegmenter`), in numpy on the
-host. The masks are frozen inputs of the step, outside the
-differentiated graph (the reference computes them under no_grad,
-attr_concen_utils/gsam_interface.py:54): image-independent segmenters
-(the center prior, a precomputed store) make them when the batch is
-built (`training.attrcon.attrcon_batch_fields`). The image-dependent
-Grounded-SAM segmenter is not ported (ROADMAP Queue 1), nor is the JAX
-`device_masks` callback bridge, which has no counterpart here.
+`CenterPriorSegmenter`, `PrecomputedMaskSegmenter`). The masks are frozen
+inputs of the step, outside the differentiated graph (the reference
+computes them under no_grad, attr_concen_utils/gsam_interface.py:54):
+- image-independent segmenters (the center prior, a precomputed store)
+  make them on the host when the batch is built
+  (`training.attrcon.attrcon_batch_fields`, `host_masks`);
+- the image-dependent Grounded-SAM segmenter
+  (segmentation/grounded_sam.py) segments the presample's decoded image:
+  the trainer runs the no-grad presample (pass 1 and the VAE decode,
+  `training.train_step.make_presample`), `device_masks` hands the image,
+  clipped to [0, 1], to the segmenter on the card and returns the masks
+  there, and the differentiable step replays pass 1 from the presample's
+  tables. JAX's `device_masks` host-callback bridge has no counterpart.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 class SegmenterHolder:
@@ -57,6 +63,36 @@ class SegmenterHolder:
             for w, m in enumerate(masks[: self.max_words]):
                 out[b, w] = m
         return out
+
+    def device_masks(self, image: torch.Tensor,
+                     mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+        """The masks of a generated image, on its device: image (B, H, W, 3)
+        (unclamped; clipped to [0, 1] here) -> (B, max_words, H, W) uint8,
+        as the JAX trainer feeds them to its step. A segmenter with `batch`
+        gets the whole batch (B > 1) on the device; otherwise each image is
+        segmented alone. `mark("segment_device")` is called once the
+        segmenter's device work is queued; `mark("segmented")` once the
+        masks are back on the device."""
+        B, H, W, _ = image.shape
+        img = image.detach().float().clamp(0.0, 1.0)
+        out = np.zeros((B, self.max_words, H, W), np.uint8)
+        nouns = self.nouns if self.nouns else [[] for _ in range(B)]
+        batch_fn = getattr(self.segmenter, "batch", None)
+        if batch_fn is not None and B > 1:
+            all_masks = batch_fn(img, [nouns[b] if b < len(nouns) else []
+                                       for b in range(B)], mark=mark)
+        else:
+            if mark is not None:
+                mark("segment_device")
+            all_masks = [self.segmenter(img[b], nouns[b]) if b < len(nouns) else []
+                         for b in range(B)]
+        for b in range(B):
+            for w, m in enumerate(all_masks[b][: self.max_words]):
+                out[b, w] = m
+        masks = torch.from_numpy(out).to(image.device)
+        if mark is not None:
+            mark("segmented")
+        return masks
 
 
 class CenterPriorSegmenter:

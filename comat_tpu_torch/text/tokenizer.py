@@ -1,8 +1,9 @@
-"""CLIP tokenizers for the PyTorch port: CLIP BPE and the hash stand-in.
+"""Tokenizers for the PyTorch port: CLIP BPE, BERT WordPiece and the hash
+stand-in.
 
 The port's own copy of comat_tpu/text/tokenizer.py (`CLIPBPETokenizer`,
-`HashTokenizer`, `load_clip_tokenizer`); the port imports nothing of the
-JAX package. Vocabularies load from local HF-format files (vocab.json +
+`BertWordPieceTokenizer`, `HashTokenizer`, `load_clip_tokenizer`); the
+port imports nothing of the JAX package. Vocabularies load from local HF-format files (vocab.json +
 merges.txt); without them `HashTokenizer` gives stable ids with the same
 BOS/EOS framing and EOS padding.
 """
@@ -207,6 +208,79 @@ class CLIPBPETokenizer:
             "eos_positions": np.asarray(eos_pos, dtype=np.int32),
         }
 
+
+class BertWordPieceTokenizer:
+    """BERT-uncased WordPiece from a vocab.txt (GroundingDINO's and BLIP's
+    text tokenizer)."""
+
+    def __init__(self, vocab_path: str):
+        self.vocab: Dict[str, int] = {}
+        with open(vocab_path, "r", encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                self.vocab[line.rstrip("\n")] = i
+        self.inv_vocab = {v: k for k, v in self.vocab.items()}
+        self.cls_token_id = self.vocab.get("[CLS]", 101)
+        self.sep_token_id = self.vocab.get("[SEP]", 102)
+        self.pad_token_id = self.vocab.get("[PAD]", 0)
+        self.unk_token_id = self.vocab.get("[UNK]", 100)
+
+    @staticmethod
+    def _basic_tokenize(text: str) -> List[str]:
+        text = text.lower()
+        out: List[str] = []
+        buf = ""
+        for ch in text:
+            if ch.isalnum():
+                buf += ch
+            else:
+                if buf:
+                    out.append(buf)
+                    buf = ""
+                if not ch.isspace():
+                    out.append(ch)
+        if buf:
+            out.append(buf)
+        return out
+
+    def _wordpiece(self, word: str) -> List[int]:
+        if word in self.vocab:
+            return [self.vocab[word]]
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            cur = None
+            while start < end:
+                sub = word[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    cur = self.vocab[sub]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_token_id]
+            ids.append(cur)
+            start = end
+        return ids
+
+    def tokenize(self, text: str) -> List[int]:
+        ids: List[int] = []
+        for w in self._basic_tokenize(text):
+            ids.extend(self._wordpiece(w))
+        return ids
+
+    def __call__(self, texts: Sequence[str], padding: str = "longest"
+                 ) -> Dict[str, np.ndarray]:
+        rows = [[self.cls_token_id] + self.tokenize(t) + [self.sep_token_id]
+                for t in texts]
+        max_len = max(len(r) for r in rows)
+        ids = np.full((len(rows), max_len), self.pad_token_id, dtype=np.int32)
+        mask = np.zeros((len(rows), max_len), dtype=np.int32)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+            mask[i, : len(r)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
 
 
 class HashTokenizer:

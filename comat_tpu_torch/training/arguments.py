@@ -20,7 +20,6 @@ _SURFACES = "ROADMAP Queue 1: trainable surfaces and the optimizer"
 _LOADERS = "ROADMAP Queue 1: snapshot loaders, tested on synthetic snapshots"
 _DDP = "ROADMAP Queue 1: torch DDP with gradient accumulation"
 _SDXL = "ROADMAP Queue 1: SDXL"
-_GSAM = "ROADMAP Queue 1: the Grounded-SAM stack"
 
 
 def _check_ported(args) -> None:
@@ -38,9 +37,6 @@ def _check_ported(args) -> None:
         ("--gradient_accumulation_steps", args.gradient_accumulation_steps > 1, _DDP),
         ("--pretrain_model_name", args.pretrain_model_name.startswith("sdxl"), _SDXL),
         ("--sdxl_unet_path", args.sdxl_unet_path, _SDXL),
-        ("--fastsam_checkpoint", args.fastsam_checkpoint, _GSAM),
-        ("--gdino_checkpoint", args.gdino_checkpoint, _GSAM),
-        ("--gdino_tokenizer_vocab", args.gdino_tokenizer_vocab, _GSAM),
         ("--blip_tokenizer_vocab", args.blip_tokenizer_vocab, _LOADERS),
         ("--caption_model_path", args.caption_model_path, _LOADERS),
     ]

@@ -15,9 +15,9 @@ come from (the counterpart of the JAX rng key) and what the trainer adds
 the reference's keys and orientation (`unet.<module>.lora.{down,up}.weight`,
 down (rank, in), up (out, rank)), the port's copy of JAX's
 `export_lora_safetensors` and `hf_import.diffusers_lora_export_name`.
-The safetensors format is written by hand (`save_safetensors`): an 8-byte
-little-endian header length, a JSON header of dtype, shape and
-`data_offsets`, then the raw little-endian bytes.
+The safetensors format is written and read by hand (`save_safetensors`,
+`load_safetensors`): an 8-byte little-endian header length, a JSON header
+of dtype, shape and `data_offsets`, then the raw little-endian bytes.
 """
 
 from __future__ import annotations
@@ -140,6 +140,31 @@ def save_safetensors(path: str, tensors: Mapping[str, np.ndarray]) -> None:
         f.write(text)
         for data in blobs:
             f.write(data)
+
+
+_SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8",
+                       "I32": "<i4", "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?"}
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Every tensor of a .safetensors file as numpy arrays (the reader of
+    `save_safetensors`' format; BF16 comes back as float32, exactly)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        a, b = info["data_offsets"]
+        raw, shape = data[a:b], tuple(info["shape"])
+        if info["dtype"] == "BF16":
+            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
+            out[name] = bits.view(np.float32).reshape(shape)
+        else:
+            out[name] = np.frombuffer(raw, _SAFETENSORS_DTYPES[info["dtype"]]).reshape(shape)
+    return out
 
 
 def export_lora_safetensors(path: str, trainable: Mapping[str, torch.Tensor]) -> None:

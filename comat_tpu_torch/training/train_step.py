@@ -4,7 +4,7 @@ GAN and attribute concentration.
 Port of comat_tpu/training/train_step.py (`TrainConfig`, `DiscState`,
 `partition_params`, `partition_disc_params`, `make_optimizer`,
 `make_d_optimizer`, `init_disc_state`, `sample_trained_idx`,
-`make_loss_fn`, `make_train_step`) without 8-bit Adam, the int8 pass 1
+`make_loss_fn`, `make_train_step`, `make_presample`) without 8-bit Adam, the int8 pass 1
 or gradient accumulation: each of those raises `NotImplementedError`
 naming its ROADMAP item. One step: encode the prompts, pass 1 (50
 no-grad CFG UNet calls with LoRA fused; unfused under
@@ -17,6 +17,10 @@ the BLIP caption loss and the reward-gradient tap, the GAN's G loss
 backward, a global-norm clip and AdamW on the trainable tensors; then,
 with a D optimizer, the discriminator's update on the detached latents
 and the batch's `gt_latents`.
+
+`make_presample` is the no-grad presample of the split step that an
+image-dependent segmenter (Grounded-SAM) needs: pass 1 and the decode
+first, the masks of its image, then the step replaying pass 1's tables.
 
 Randomness is injected: a `StepDraws` holds the initial latents, the
 per-step noise table (S, B, h, w, 4), the K-schedule start, the crop
@@ -397,17 +401,20 @@ class PhaseClock:
     CPU), read after the step has synchronised.
 
     A name may be marked more than once. `seconds(a, b)` spans the last
-    mark `a` to the last mark `b`; `seconds(name)` sums the spans
-    between the marks `name<` and `name>` taken in pairs (the backward of
-    each replay op, for instance). `probe`, when given, is called at
-    each mark (e.g. to read kernel launch counters), and `counts` takes
-    the differences of its readings over the same spans."""
+    mark `a` to the last mark `b` (0 when either was not marked: a stage
+    the step did not run); `seconds(name)` sums the spans between the
+    marks `name<` and `name>` taken in pairs (the backward of each replay
+    op, for instance); `span()` runs from the first mark to the last.
+    `probe`, when given, is called at each mark (e.g. to read kernel
+    launch counters), and `counts` takes the differences of its readings
+    over the same spans."""
 
     def __init__(self, device: torch.device,
                  probe: Optional[Callable[[], Dict[str, int]]] = None):
         self.cuda = device.type == "cuda"
         self.probe = probe
         self.marks: Dict[str, List[Tuple[object, Optional[Dict[str, int]]]]] = {}
+        self.stamps: List[object] = []      # every mark's stamp, in order
 
     def mark(self, name: str) -> None:
         if self.cuda:
@@ -417,9 +424,12 @@ class PhaseClock:
             stamp = time.perf_counter()
         reading = self.probe() if self.probe is not None else None
         self.marks.setdefault(name, []).append((stamp, reading))
+        self.stamps.append(stamp)
 
     def _pairs(self, a: str, b: Optional[str]):
         if b is not None:
+            if a not in self.marks or b not in self.marks:
+                return []       # a stage this step did not run
             return [(self.marks[a][-1], self.marks[b][-1])]
         begins, ends = self.marks.get(a + "<", []), self.marks.get(a + ">", [])
         if len(begins) != len(ends):
@@ -431,6 +441,13 @@ class PhaseClock:
         for (sa, _), (sb, _) in self._pairs(a, b):
             total += sa.elapsed_time(sb) / 1e3 if self.cuda else sb - sa
         return total
+
+    def span(self) -> float:
+        """Seconds from the clock's first mark to its last."""
+        if not self.stamps:
+            return 0.0
+        sa, sb = self.stamps[0], self.stamps[-1]
+        return sa.elapsed_time(sb) / 1e3 if self.cuda else sb - sa
 
     def counts(self, a: str, b: Optional[str] = None) -> Dict[str, int]:
         total: Dict[str, int] = {}
@@ -444,6 +461,12 @@ class PhaseClock:
 # PhaseClock). Forward first, then the backward's spans, in the order
 # autograd runs them, then the updates.
 SEGMENTS: Dict[str, Tuple[str, Optional[str]]] = {
+    # the split step's presample and segmentation (`make_presample`,
+    # SegmenterHolder.device_masks), before the differentiable step
+    "presample_pass1": ("presample", "presample_pass1"),
+    "presample_decode": ("presample_pass1", "presampled"),
+    "segment_device": ("presampled", "segment_device"),
+    "segment_host": ("segment_device", "segmented"),
     "pass1": ("start", "pass1"),
     "replay_fwd": ("pass1", "replay"),
     "capture_fwd": ("replay", "pass2"),
@@ -462,9 +485,17 @@ SEGMENTS: Dict[str, Tuple[str, Optional[str]]] = {
     "d_opt": ("d_backward", "end"),
 }
 
-# The seconds a train step reports, as sums of segments.
+# The seconds a train step reports, as sums of segments. s_pass1 is pass
+# 1's wherever it runs: in the step, or in the split step's presample;
+# s_presample is the rest of the presample (its no-grad VAE decode);
+# s_segment the segmentation, device forwards and host decode, and
+# s_segment_host its host part. s_capture and s_segment_host lie inside
+# other phases; the others are disjoint.
 PHASES = {
-    "s_pass1": ("pass1",),
+    "s_pass1": ("pass1", "presample_pass1"),
+    "s_presample": ("presample_decode",),
+    "s_segment": ("segment_device", "segment_host"),
+    "s_segment_host": ("segment_host",),
     "s_pass2": ("replay_fwd", "capture_fwd", "replay_bwd", "capture_bwd"),
     "s_capture": ("capture_fwd", "capture_bwd"),
     "s_decode": ("decode_fwd", "decode_bwd"),
@@ -523,6 +554,9 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
 
         mark("start")
         trained_idx = sample_trained_idx(cfg, draws.start)
+        presampled = None
+        if "eps_table" in batch:     # the split step: pass 1 ran in the presample
+            presampled = (batch["eps_table"], batch["latents_traj"])
         image, result = pipeline.forward(
             batch["input_ids"], batch["null_ids"], trained_idx,
             num_inference_steps=cfg.total_step, K=cfg.K,
@@ -533,6 +567,7 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             latents0=draws.latents0, step_noise=draws.step_noise,
             capture=cfg.attrcon, capture_idx=draws.attrcon_draws, mark=mark,
             remat=cfg.remat_min_res if cfg.remat_min_res else cfg.gradient_checkpointing,
+            presampled=presampled,
         )
         mark("decoded")
         hook(image, "decode_bwd<")    # "decode_bwd>": see pipeline.forward
@@ -612,12 +647,16 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     step_loss, grad_norm (before the clip), G_loss and D_loss with the
     GAN, token_loss and pixel_loss with attribute concentration, and the
     seconds of the step's phases on its device (`PHASES`): s_pass1
-    (encode and pass 1), s_pass2 (the replay and the capture, forward and
+    (encode and pass 1, here or in a presample on the same clock),
+    s_presample and s_segment (a split step's, see `make_presample`;
+    0 otherwise), s_pass2 (the replay and the capture, forward and
     backward; s_capture the capture alone), s_decode (forward and
     backward), s_reward (crop, BLIP forward and backward), s_gan_g (D's
     forward and backward for the G loss), s_grounding (the grounding
     losses, forward and backward), s_optimizer, s_d_update (D's loss,
-    backward and optimizer), s_step. `clock`: a PhaseClock to mark the
+    backward and optimizer), s_step (the clock's first mark to its last).
+    A batch holding `eps_table` and `latents_traj` (a presample's) skips
+    pass 1 and replays from them. `clock`: a PhaseClock to mark the
     step on (one is made without it), for a caller that reads more of
     it, e.g. launch counts by segment through its probe."""
     loss_fn = make_loss_fn(pipeline, blip, cfg, extra_losses, disc)
@@ -659,7 +698,40 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
         seg = {name: clock.seconds(*marks) for name, marks in SEGMENTS.items()}
         for name, parts in PHASES.items():
             out[name] = sum(seg[p] for p in parts)
-        out["s_step"] = clock.seconds("start", "end")
+        out["s_step"] = clock.span()
         return TrainState(state.step + 1, state.trainable, state.optimizer), out
 
     return train_step
+
+
+def make_presample(pipeline: DiffusionPipeline, cfg: TrainConfig):
+    """The split step's no-grad presample (JAX's `make_presample`,
+    comat_tpu/training/train_step.py:550-588): presample(batch, draws,
+    clock=None) -> (image (B, H, W, 3) unclamped, eps_table, latents_traj).
+
+    With an image-dependent segmenter (Grounded-SAM) a step runs: this
+    presample (pass 1 and the VAE decode, without gradients), the
+    segmentation of its image (`SegmenterHolder.device_masks`), then the
+    train step on the same `draws` with the masks and the two tables in
+    the batch (`seg_masks`, `eps_table`, `latents_traj`): its forward
+    replays from the tables instead of sampling again, so the 50 pass-1
+    UNet calls are not paid twice. The draws' latents and noise table are
+    the step's own, so the replayed trajectory is the presampled one
+    exactly. On `clock` it marks "presample", "presample_pass1" and
+    "presampled"."""
+
+    def presample(batch, draws: StepDraws, clock: Optional[PhaseClock] = None):
+        mark = clock.mark if clock is not None else (lambda name: None)
+        mark("presample")
+        image, eps_table, traj = pipeline.presample(
+            batch["input_ids"], batch["null_ids"],
+            num_inference_steps=cfg.total_step, guidance_scale=cfg.guidance_scale,
+            guidance_rescale=cfg.guidance_rescale,
+            eos_positions=batch.get("eos_positions"),
+            latents0=draws.latents0, step_noise=draws.step_noise,
+            mark=lambda name: mark("presample_" + name),
+        )
+        mark("presampled")
+        return image, eps_table, traj
+
+    return presample

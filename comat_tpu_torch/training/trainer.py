@@ -8,7 +8,10 @@ concentration. `train()` runs the loop: validation and a checkpoint at
 step 0, one `make_train_step` step per batch with its draws from one
 `torch.Generator` seeded by --seed, metrics one step late, checkpoints
 and validation every --validation_steps and at the end, and a checkpoint
-before exiting on SIGTERM/SIGINT.
+before exiting on SIGTERM/SIGINT. With an image-dependent segmenter
+(--seg_model gsam: Grounded-SAM, seeded unless its checkpoints are given)
+each step is split as in JAX: the no-grad presample, the segmentation of
+its images on the device, then the step replaying the presample's tables.
 
 Weights are drawn from --seed; loading a diffusers snapshot is not ported
 (ROADMAP Queue 1: snapshot loaders), so an existing --pretrain_model
@@ -51,11 +54,12 @@ from comat_tpu_torch.training.train_step import (
     TrainConfig,
     init_disc_state,
     init_train_state,
+    make_presample,
     make_train_step,
+    sample_draws,
 )
 
 _LOADERS = "ROADMAP Queue 1: snapshot loaders, tested on synthetic snapshots"
-_GSAM = "ROADMAP Queue 1: the Grounded-SAM stack"
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -186,10 +190,6 @@ class Trainer:
             self._smoke_gate("no --blip_tokenizer_vocab: the caption reward "
                              "would tokenize with a HashTokenizer")
             self.caption_tok = HashTokenizer(self.blip_cfg.vocab_size)
-        if (self.tcfg.attrcon and not args.precomputed_masks
-                and args.seg_model == "gsam" and not tiny):
-            raise NotImplementedError(f"--seg_model gsam: not ported yet, {_GSAM}; "
-                                      "pass --seg_model center_prior")
         weights = resolve_snapshot(args.pretrain_model, args.cache_dir)
         if weights and os.path.isdir(weights):
             raise NotImplementedError(
@@ -269,14 +269,26 @@ class Trainer:
 
                 set_parse_cache(load_parse_cache(args.parse_cache))
                 self.logger.info("parse cache armed: %s", args.parse_cache)
-            segmenter = (PrecomputedMaskSegmenter(args.precomputed_masks)
-                         if args.precomputed_masks else CenterPriorSegmenter())
+            if args.precomputed_masks:
+                segmenter = PrecomputedMaskSegmenter(args.precomputed_masks)
+            elif args.seg_model == "gsam" and not tiny:
+                segmenter = self._build_gsam_segmenter(args, seed)
+            else:
+                # --tiny_models or another --seg_model: the center prior keeps
+                # the loss path exercised, as in JAX
+                segmenter = CenterPriorSegmenter()
             self.seg_holder = SegmenterHolder(segmenter)
             extra_losses = make_attrcon_extra_losses(self.pipeline, self.seg_holder,
                                                      self.tcfg)
         self.train_step = make_train_step(
             self.pipeline, self.blip, self.tcfg, extra_losses, self.disc,
             self.d_state.optimizer if self.d_state is not None else None)
+        # an image-dependent segmenter (Grounded-SAM) needs the generated
+        # image: each step is split into the presample, the segmentation and
+        # the differentiable step replaying the presample's tables
+        self.presample = None
+        if self.seg_holder is not None and self.seg_holder.image_dependent:
+            self.presample = make_presample(self.pipeline, self.tcfg)
 
         self.metrics = MetricsWriter(args.output_dir)
         self.timer = StepTimer()
@@ -298,6 +310,46 @@ class Trainer:
             signal.signal(signal.SIGINT, _graceful)
         except ValueError:
             pass    # not the main thread
+
+    def _build_gsam_segmenter(self, args, seed: int):
+        """The reference's default segmenter (--seg_model gsam): FastSAM-x
+        proposals and GroundingDINO-T (swint_ogc) grounding at an 800-pixel
+        input (attr_concen_utils/gsam_interface.py), on the trainer's device.
+        Weights load from --fastsam_checkpoint / --gdino_checkpoint, the
+        tokenizer from --gdino_tokenizer_vocab; without them the stack runs
+        all the same, with seeded weights (the masks are noise) or the hash
+        tokenizer, and says so (JAX's `_build_gsam_segmenter`)."""
+        from comat_tpu_torch.segmentation import checkpoints as seg_ckpt
+        from comat_tpu_torch.segmentation.grounded_sam import GroundedSAMSegmenter
+
+        tok = None
+        if args.gdino_tokenizer_vocab:
+            from comat_tpu_torch.text.tokenizer import BertWordPieceTokenizer
+
+            tok = BertWordPieceTokenizer(args.gdino_tokenizer_vocab)
+        seg = GroundedSAMSegmenter(tokenizer=tok, device=self.device, seed=seed + 3,
+                                   gdino_resize=800)   # the reference's RandomResize([800])
+        loaded = []
+        for name, path, load, module in (
+                ("fastsam", args.fastsam_checkpoint, seg_ckpt.load_fastsam_checkpoint, seg.sam),
+                ("gdino", args.gdino_checkpoint, seg_ckpt.load_gdino_checkpoint, seg.gdino)):
+            if not path:
+                continue
+            missing, unused = load(path, module)
+            if missing or unused:
+                self.logger.warning("%s import: %d tensors missing (first: %s), %d unused "
+                                    "(first: %s)", name, len(missing), missing[:3],
+                                    len(unused), unused[:3])
+            loaded.append(name)
+        if len(loaded) < 2:
+            self.logger.warning(
+                "GroundedSAM running with RANDOM weights for %s: masks will be noise. "
+                "Pass --fastsam_checkpoint / --gdino_checkpoint for real segmentation.",
+                sorted({"fastsam", "gdino"} - set(loaded)))
+        if tok is None:
+            self.logger.warning("no --gdino_tokenizer_vocab: GroundingDINO tokenizes the "
+                                "nouns with a HashTokenizer")
+        return seg
 
     def _smoke_gate(self, why: str) -> None:
         """Refuse a fidelity-degrading fallback in a real (non-tiny) run
@@ -353,8 +405,17 @@ class Trainer:
                 clock = PhaseClock(self.device, probe=self.probe)
                 batch = self._batch(prompts)
                 self.timer.tick()
+                draws = None
+                if self.presample is not None:
+                    # the split step (JAX trainer.py:785-798): the step's
+                    # draws, taken from the generator as the step takes them
+                    draws = sample_draws(self.tcfg, len(prompts), self.pcfg.latent_size,
+                                         self.generator, self.device)
+                    image, eps_table, traj = self.presample(batch, draws, clock)
+                    batch["seg_masks"] = self.seg_holder.device_masks(image, mark=clock.mark)
+                    batch["eps_table"], batch["latents_traj"] = eps_table, traj
                 # the step returns host floats, so it has synchronised
-                self.state, m = self.train_step(self.state, batch,
+                self.state, m = self.train_step(self.state, batch, draws=draws,
                                                 generator=self.generator, clock=clock)
                 dt = self.timer.tick()
                 self.global_step += 1

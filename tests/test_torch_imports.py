@@ -42,7 +42,13 @@ def test_importing_every_module_loads_no_jax():
             "comat_tpu_torch.training.trainer", "comat_tpu_torch.training.arguments",
             "comat_tpu_torch.training.data", "comat_tpu_torch.training.checkpoints",
             "comat_tpu_torch.training.logging_utils",
-            "comat_tpu_torch.models.remat"} <= set(mods)
+            "comat_tpu_torch.models.remat",
+            "comat_tpu_torch.ops.deformable_attention",
+            "comat_tpu_torch.segmentation.layers", "comat_tpu_torch.segmentation.swin",
+            "comat_tpu_torch.segmentation.gdino", "comat_tpu_torch.segmentation.fastsam",
+            "comat_tpu_torch.segmentation.grounded_sam",
+            "comat_tpu_torch.segmentation.checkpoints",
+            "comat_tpu_torch.segmentation.gdino_import_hf"} <= set(mods)
     res = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -72,8 +78,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         from comat_tpu_torch.config import BLIPConfig
         from comat_tpu_torch.models.blip import make_blip
         from comat_tpu_torch.train import main as train_main
+        from comat_tpu_torch.segmentation.grounded_sam import GroundedSAMSegmenter
         cfg = make_pipeline_config("sd_1_5", lora_rank=0, resolution=64, tiny=True)
-        for call in (lambda: DiffusionPipeline(cfg),
+        for call in (lambda: DiffusionPipeline(cfg), lambda: GroundedSAMSegmenter(),
                      lambda: main(["--tiny", "--prompt", "a cat"]),
                      lambda: make_blip(BLIPConfig.tiny()),
                      lambda: train_main(["--tiny_models", "--training_prompts",
@@ -87,4 +94,4 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
                 print("RAN")
     """)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count("RAISED") == 4, res.stdout
+    assert res.stdout.count("RAISED") == 5, res.stdout

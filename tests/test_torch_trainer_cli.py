@@ -69,15 +69,15 @@ def test_parser_matches_jax_on_sd15_flags(monkeypatch):
     got = vars(targs.parse_args(argv))
     assert got.pop("device") == "cuda"
     assert got == want
-    # the port's launcher: the same flags, then the smoke options
-    assert targs.launcher_argv(str(PORT_SD15)) == argv + [
-        "--allow_smoke", "--seg_model", "center_prior"]
+    # the port's launcher: the same flags (Grounded-SAM masks included),
+    # then the smoke option
+    assert targs.launcher_argv(str(PORT_SD15)) == argv + ["--allow_smoke"]
 
 
 @pytest.mark.parametrize("flags", [
     ["--use_8bit_adam"], ["--full_finetuning"], ["--train_text_encoder_lora"],
     ["--gradient_accumulation_steps", "2"], ["--pretrain_model_name", "sdxl"],
-    ["--blip_tokenizer_vocab", "vocab.txt"], ["--gdino_checkpoint", "g.pth"]])
+    ["--blip_tokenizer_vocab", "vocab.txt"], ["--caption_model_path", "blip"]])
 def test_unported_flags_raise_naming_their_item(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "):
         targs.parse_args(["--training_prompts", "p.txt", *flags])
@@ -194,12 +194,13 @@ def _args(tmp_path, *extra):
 def test_smoke_gates_raise_without_allow_smoke(tmp_path):
     with pytest.raises(RuntimeError, match="--allow_smoke"):
         Trainer(_args(tmp_path))
-    with pytest.raises(NotImplementedError, match="the Grounded-SAM stack"):
-        Trainer(_args(tmp_path, "--allow_smoke", "--seg_model", "gsam"))
     (tmp_path / "snapshot").mkdir()
-    with pytest.raises(NotImplementedError, match="snapshot loaders"):
-        Trainer(_args(tmp_path, "--allow_smoke", "--seg_model", "center_prior",
-                      "--pretrain_model", str(tmp_path / "snapshot")))
+    # --seg_model gsam passes the checks made before any weights; a
+    # snapshot to load still raises there
+    for seg in ("gsam", "center_prior"):
+        with pytest.raises(NotImplementedError, match="snapshot loaders"):
+            Trainer(_args(tmp_path, "--allow_smoke", "--seg_model", seg,
+                          "--pretrain_model", str(tmp_path / "snapshot")))
 
 
 TINY_RUN = ["--tiny_models", "--device", "cpu", "--pretrain_model_name", "sd_1_5_attrcon",

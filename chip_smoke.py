@@ -16,7 +16,11 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    flash-attention forward, its dq and dk/dv backward kernels, the 3x3
    conv forward, its dx (the forward kernel through the autograd Function,
    against the plain vjp) and its dw (also at the shapes phase 4 gives
-   it, where the train step runs it);
+   it, where the train step runs it); and SDXL's (phases 11 and 12): the
+   flash forward, dq and dk/dv at d = 64, (12, 10, 1024, 1024, 64) and
+   (12, 20, 256, 256, 64) and the capture's batch 6, the SD1.5 D at batch
+   6 and 12, the VAE's attention at batch 6, the decoder's convs and dx
+   and the encoder's convs at batch 6;
 3. generation parity: SD1.5 at full width, fp32, 256^2, 1 prompt, 2 DDPM
    steps, the same seeded weights and injected noise on the card and on
    this machine's CPU; images within 1e-3;
@@ -86,13 +90,29 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    threshold (the count of such scores printed). Then
    `GroundedSAMSegmenter.batch` in bf16 at batch 4 (512^2, GroundingDINO
    at 800^2), timed apart: the device forwards and the host decode.
+11. SDXL parity: SDXL at full width (UNet (320, 640, 1280), CLIP-L and
+   OpenCLIP bigG, the VAE at 0.13025) in fp32 with seeded weights, on the
+   card and on the CPU: `encode_prompt` through both towers (the second
+   tokenizer padding with id 0), one guided UNet call at 512^2, batch 1
+   (CFG 7.5, the added condition; the UNet on the CPU's encodings), the
+   decode of one latent; each output within 1e-3 of its max abs, and the
+   card's launches (70 A, then 1 A and 21 B);
+12. the SDXL trainer CLI: `comat_tpu_torch.train.main` with the flags of
+   comat_tpu_torch/scripts/sdxl.sh (the repo's scripts/sdxl.sh plus
+   --allow_smoke: sdxl_attrcon_unet, 512^2, batch 6, total_step 50, K 5,
+   CFG 7.5, LoRA 128, --gradient_checkpointing, the GAN with an
+   SD1.5-architecture D of its own, Grounded-SAM at A 2) for 3 steps, with
+   a checkpoint at step 0 and 3, against a GanLatentStore the SDXL VAE
+   encoder made from 6 seeded images; seconds per step and its split,
+   peak memory, the launches by role against those the config predicts.
 Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
 in the driven paths: generation, the reduced recipe's train step, the
 same step with the VAE trained, phase 4's fp32 card run of the train step
 with the VAE trained (dw), the full recipe's step, the latent store's
-encoding and the trainer CLI's run. Weights are random (the real ones are
-not in the repository); depth is not cut.
+encoding, the trainer CLI's run, and SDXL's latent store and trainer run.
+Weights are random (the real ones are not in the repository); depth is
+not cut.
 """
 
 from __future__ import annotations
@@ -128,6 +148,19 @@ VAL_FLASH = [(2, 8, 4096, 4096, 40), (2, 8, 1024, 1024, 80), (2, 8, 256, 256, 16
 # for the G loss and its capture backward, both at the prompt batch
 HALF_BATCH_FLASH = [(4, 8, 4096, 4096, 40), (4, 8, 1024, 1024, 80),
                     (4, 8, 256, 256, 160)]
+# SDXL (phases 11 and 12): at 512^2 the UNet runs 70 self-attentions over
+# more than 128 keys a call, all at d = 64: 10 at S = 1024 (640 wide, 10
+# heads) and 60 at S = 256 (1280 wide, 20 heads). (B, H, Sq, Skv, d):
+# pass 1 and the replay at CFG batch 12, the capture forwards at batch 6
+SDXL_ATTN = 70
+SDXL_BATCH = 6
+SDXL_FLASH = [(12, 10, 1024, 1024, 64), (12, 20, 256, 256, 64),
+              (6, 10, 1024, 1024, 64), (6, 20, 256, 256, 64)]
+# the SDXL recipe's SD1.5-architecture D at batch 6 (G loss) and 12 (its
+# update), and the VAE's mid-block attention at batch 6 (decode, encode)
+SDXL_D_FLASH = [(6, 8, 4096, 4096, 40), (6, 8, 1024, 1024, 80), (6, 8, 256, 256, 160),
+                (12, 8, 4096, 4096, 40), (12, 8, 1024, 1024, 80), (12, 8, 256, 256, 160)]
+SDXL_VAE_FLASH = (6, 1, 4096, 4096, 512)
 # (H, C, Cout): the 21 gated convs of the 512^2 decoder, 7 distinct shapes
 DECODER_CONVS = [(128, 512, 512), (256, 512, 512), (256, 512, 256),
                  (256, 256, 256), (512, 256, 256), (512, 256, 128),
@@ -157,6 +190,25 @@ CLI_LAUNCHES = {
     "d_forward": {"flash_fwd": 30},
     "d_backward": {"dq": 30, "dkv": 30},
 }
+# the SDXL trainer (phase 12): comat_tpu_torch/scripts/sdxl.sh's flags at
+# batch 6 (CFG 12), 3 steps; per step by role, SDXL_ATTN A a UNet call:
+# pass 1's 50 guided calls in the presample; the replay's 5 segments each
+# run the UNet forward inside their backward and, under remat, every
+# checkpointed block's forward again, then its backward; the 2 capture
+# forwards (batch 6) and their recompute, not checkpointed; the decode as
+# phase 9's; the SD1.5-architecture D as phase 8's (15 A a call)
+SDXL_LAUNCHER = os.path.join("comat_tpu_torch", "scripts", "sdxl.sh")
+SDXL_STEPS = 3
+SDXL_CLI_LAUNCHES = {
+    "pass1": {"flash_fwd": 50 * SDXL_ATTN},
+    "presample": {"flash_fwd": 1, "conv_fwd": 21},
+    "replay": {"flash_fwd": 5 * 2 * SDXL_ATTN, "dq": 5 * SDXL_ATTN, "dkv": 5 * SDXL_ATTN},
+    "capture": {"flash_fwd": 2 * 2 * SDXL_ATTN, "dq": 2 * SDXL_ATTN, "dkv": 2 * SDXL_ATTN},
+    "decode": {"flash_fwd": 1, "dq": 1, "dkv": 1, "conv_fwd": 39, "conv_dx": 21},
+    "d_forward": {"flash_fwd": 30},
+    "d_backward": {"dq": 30, "dkv": 30},
+}
+SDXL_PARITY_TOL = 1e-3   # relative to each output's max abs
 # one validation image: 50 CFG UNet calls (15 A each) and its decode
 VALIDATION_LAUNCHES = {"flash_fwd": 751, "conv_fwd": 21}
 # encoding 4 images at 512^2: the 12 gated encoder convs and the
@@ -567,6 +619,27 @@ def phase_kernels(torch, fa, cv):
     for Hs, C, Cout in ENCODER_CONVS:
         entries += check_conv_fwd(torch, cv, gen, TRAIN_BATCH, Hs, C, Cout, "bfloat16")
         _log_entry(entries[-1])
+    # SDXL (phases 11 and 12): its UNet's d = 64 and the SD1.5 D at batch 6
+    # in fp32 and bf16; in bf16 too D's update at batch 12, the VAE's
+    # attention and its convs (decode forward and dx, encode) at batch 6
+    for dtype, shapes in (("float32", SDXL_FLASH[:2] + SDXL_D_FLASH[:3]),
+                          ("bfloat16", SDXL_FLASH + SDXL_D_FLASH + [SDXL_VAE_FLASH])):
+        for shape in shapes:
+            entries += check_flash_fwd(torch, fa, gen, shape, dtype)
+            _log_entry(entries[-1])
+            entries += check_flash_bwd(torch, fa, gen, shape, dtype)
+            _log_entry(entries[-2])
+            _log_entry(entries[-1])
+            torch.cuda.empty_cache()
+    for Hs, C, Cout in DECODER_CONVS:
+        entries += check_conv_fwd(torch, cv, gen, SDXL_BATCH, Hs, C, Cout, "bfloat16")
+        _log_entry(entries[-1])
+        entries += check_conv_dx(torch, cv, gen, SDXL_BATCH, Hs, C, Cout, "bfloat16")
+        _log_entry(entries[-1])
+        torch.cuda.empty_cache()
+    for Hs, C, Cout in ENCODER_CONVS:
+        entries += check_conv_fwd(torch, cv, gen, SDXL_BATCH, Hs, C, Cout, "bfloat16")
+        _log_entry(entries[-1])
     # dw where the train step runs it: the VAE trained, in phase 4's run
     for Hs, C, Cout in PARITY_DW_CONVS:
         entries += check_conv_dw(torch, cv, gen, 1, Hs, C, Cout, "float32")
@@ -580,9 +653,10 @@ def fp32_config(name: str, resolution: int, lora_rank: int = 0):
     from comat_tpu_torch.models.pipeline import make_pipeline_config
 
     cfg = make_pipeline_config(name, lora_rank=lora_rank, resolution=resolution)
-    f32 = lambda c: dataclasses.replace(c, dtype=torch.float32)  # noqa: E731
+    f32 = lambda c: c and dataclasses.replace(c, dtype=torch.float32)  # noqa: E731
     return dataclasses.replace(
-        cfg, unet=f32(cfg.unet), text=f32(cfg.text), vae=f32(cfg.vae)
+        cfg, unet=f32(cfg.unet), text=f32(cfg.text), vae=f32(cfg.vae),
+        text2=f32(cfg.text2),
     )
 
 
@@ -1038,24 +1112,25 @@ def phase_train_full(torch, fa, cv, kernels, pipe, blip, batch):
     return by_shape, median, peak
 
 
-def encode_latent_store(torch, fa, cv, kernels, out_dir, prompts_path):
-    """The GAN's latent store for phase 9: the SD1.5 VAE encoder (bf16,
-    seeded weights) encodes 4 seeded 512^2 images on the card; their
-    means times the scaling factor are written as (64, 64, 4) .npy files
-    and indexed (jsonl) for every training prompt, round robin. Returns
-    (index path, launches by kernel and shape)."""
+def encode_latent_store(torch, fa, cv, kernels, out_dir, prompts_path, sdxl=False,
+                        batch=TRAIN_BATCH):
+    """The GAN's latent store for phase 9 (12 with `sdxl`): the SD1.5 (SDXL)
+    VAE encoder (bf16, seeded weights) encodes `batch` seeded 512^2 images
+    on the card; their means times the scaling factor are written as (64,
+    64, 4) .npy files and indexed (jsonl) for every training prompt, round
+    robin. Returns (index path, launches by kernel and shape)."""
     from comat_tpu_torch.config import VAEConfig
     from comat_tpu_torch.models.vae import AutoencoderKL
     from comat_tpu_torch.training.data import load_prompts
     from comat_tpu_torch.weights import init_weights_
 
-    cfg = VAEConfig.sd15()
+    cfg = VAEConfig.sdxl() if sdxl else VAEConfig.sd15()
     with torch.device("meta"):
         vae = AutoencoderKL(cfg)
     vae = vae.to_empty(device="cuda").eval().requires_grad_(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
     init_weights_(vae, gen)
-    images = torch.rand(TRAIN_BATCH, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
+    images = torch.rand(batch, 512, 512, 3, generator=gen, device="cuda") * 2 - 1
     reset(kernels)
     with torch.no_grad():
         mean, logvar = vae.encode(images)
@@ -1063,9 +1138,9 @@ def encode_latent_store(torch, fa, cv, kernels, out_dir, prompts_path):
     counts = {k: n for k, n in counts_by_role(fa, cv).items() if n}
     by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
     latents = (mean * cfg.scaling_factor).float().cpu().numpy()
-    log(f"  encoded {TRAIN_BATCH} images to {latents.shape}, latent std "
-        f"{latents.std():.4f}; launches {counts}")
-    if latents.shape != (TRAIN_BATCH, 64, 64, 4) or not (
+    log(f"  encoded {batch} images to {latents.shape}, latent std "
+        f"{latents.std():.4f} (scaling {cfg.scaling_factor}); launches {counts}")
+    if latents.shape != (batch, 64, 64, 4) or not (
             torch.isfinite(mean).all() and torch.isfinite(logvar).all()):
         raise AssertionError(f"bad encoder output {latents.shape}")
     if counts != ENCODE_LAUNCHES:
@@ -1078,7 +1153,7 @@ def encode_latent_store(torch, fa, cv, kernels, out_dir, prompts_path):
     index = os.path.join(out_dir, "index.jsonl")
     with open(index, "w") as f:
         for j, p in enumerate(load_prompts(prompts_path)):
-            f.write(json.dumps({"prompt": p, "file_path": f"latent_{j % TRAIN_BATCH}.npy"})
+            f.write(json.dumps({"prompt": p, "file_path": f"latent_{j % batch}.npy"})
                     + "\n")
     del vae, images
     return index, by_shape
@@ -1104,7 +1179,8 @@ def _cli_roles(trainer):
 def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     """The trainer CLI with scripts/sd15.sh's flags at 512^2, then a resume
     from its checkpoint. Returns (launches by kernel and shape of the
-    trainer's runs, of the latent store's encoding)."""
+    trainer's runs, of the latent store's encoding, the first run's
+    medians, its peak memory GiB)."""
     from comat_tpu_torch.train import main as train_main
     from comat_tpu_torch.training import train_step as ts
     from comat_tpu_torch.training.arguments import launcher_argv, parse_args
@@ -1256,7 +1332,7 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     del resumed, saved, a, b
     gc.collect()
     torch.cuda.empty_cache()
-    return cli_shapes, encode_shapes
+    return cli_shapes, encode_shapes, median, peak
 
 
 GSAM_TOL = 1e-3          # relative to each output's max abs
@@ -1421,6 +1497,172 @@ def phase_gsam(torch):
     return {"device_s": dev_s, "host_s": host_s, "peak_gib": peak}
 
 
+def phase_sdxl_parity(torch, fa, cv, kernels):
+    """SDXL at full width in fp32 (TF32 off), card against CPU on the same
+    seeded weights: both text towers (`encode_prompt`: the penultimate
+    states concatenated, the projected pooled output), one guided UNet call
+    at 512^2, batch 1 (CFG 7.5, the added condition), and the decode of one
+    latent. Each output within SDXL_PARITY_TOL of its max abs; the card's
+    launches are the UNet's 70 A and the decode's 1 A and 21 B."""
+    from comat_tpu_torch.diffusion.guidance import make_cfg_eps_model
+    from comat_tpu_torch.models.pipeline import DiffusionPipeline
+    from comat_tpu_torch.text.tokenizer import HashTokenizer
+
+    cfg = fp32_config("sdxl", 512)
+    t0 = time.perf_counter()
+    cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
+    gpu = DiffusionPipeline(cfg, device="cuda", params=cpu.state_dicts())
+    n_par = {k: sum(p.numel() for p in m.parameters()) / 1e6
+             for k, m in (("unet", cpu.unet), ("text", cpu.text), ("text2", cpu.text2),
+                          ("vae", cpu.vae))}
+    log(f"  weights made in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} M" for k, v in n_par.items()))
+    tok, tok2 = HashTokenizer(cfg.text.vocab_size), HashTokenizer(cfg.text.vocab_size,
+                                                                   pad_token_id=0)
+    prompt = ["a red cube on top of a blue sphere"]
+    enc, null = tok(prompt), tok([""])
+    ids2, null2 = tok2(prompt)["input_ids"], tok2([""])["input_ids"]
+    g = torch.Generator().manual_seed(SEED + 31)
+    x = torch.randn(1, 64, 64, 4, generator=g)
+    z = torch.randn(1, 64, 64, 4, generator=g)
+
+    def run(pipe):
+        dev = pipe.device
+        with torch.no_grad():
+            e = pipe.encode_prompt(enc["input_ids"], enc["eos_positions"], input_ids2=ids2)
+            n = pipe.encode_prompt(null["input_ids"], None, input_ids2=null2)
+            out = {"context": e.context, "pooled": e.pooled, "null_context": n.context,
+                   "null_pooled": n.pooled}
+            # the UNet on the CPU's encodings, so that it alone is compared
+            c = {k: v.to(dev) for k, v in conds.items()} if conds else {
+                k: v for k, v in out.items()}
+            eps_model = make_cfg_eps_model(
+                lambda lat, t, ctx, ac: pipe.unet_apply(lat, t, ctx, ac),
+                c["context"], c["null_context"], 7.5, 0.0,
+                pipe.sdxl_added_cond(c["pooled"], 1),
+                pipe.sdxl_added_cond(c["null_pooled"], 1))
+            out["eps"] = eps_model(x.to(dev), 981)
+            out["image"] = pipe.decode_image(z.to(dev))
+        return {k: v.float().cpu() for k, v in out.items()}
+
+    conds = None
+    t0 = time.perf_counter()
+    want = run(cpu)
+    t_cpu = time.perf_counter() - t0
+    conds = {k: want[k] for k in ("context", "pooled", "null_context", "null_pooled")}
+    del cpu
+    gc.collect()
+    reset(kernels)
+    t0 = time.perf_counter()
+    got = run(gpu)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    counts = {k: n for k, n in counts_by_role(fa, cv).items() if n}
+    rels = {k: float((got[k] - want[k]).abs().max()) / max(float(want[k].abs().max()), 1e-12)
+            for k in want}
+    log(f"  card vs CPU (cpu {t_cpu:.1f} s, card {t_gpu:.1f} s), relative to each output's "
+        f"max abs: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+        + f"; shapes context {tuple(got['context'].shape)}, pooled "
+        f"{tuple(got['pooled'].shape)}, eps {tuple(got['eps'].shape)}, image "
+        f"{tuple(got['image'].shape)}; launches {counts}")
+    worst = max(rels, key=rels.get)
+    if not all(torch.isfinite(v).all() for v in got.values()) or not (
+            rels[worst] <= SDXL_PARITY_TOL):
+        raise AssertionError(f"SDXL {worst} differs by {rels[worst]:.3e} > {SDXL_PARITY_TOL}")
+    want_counts = {"flash_fwd": SDXL_ATTN + 1, "conv_fwd": 21}
+    if counts != want_counts:
+        raise AssertionError(f"SDXL parity launched {counts}, expected {want_counts}")
+    del gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rels
+
+
+def phase_sdxl_trainer(torch, fa, cv, kernels, cli_median, cli_peak):
+    """The trainer CLI with comat_tpu_torch/scripts/sdxl.sh's flags (the
+    launcher's own defaults; its --gan_model_arch gansd_1_5 D, Grounded-SAM,
+    --gradient_checkpointing) at batch 6, 512^2, SDXL_STEPS steps, against a
+    latent store the SDXL VAE encoder made, with a checkpoint at step 0 and
+    at the end. Returns (launches by kernel and shape of the trainer's run,
+    of the store's encoding)."""
+    from comat_tpu_torch.train import main as train_main
+    from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.arguments import launcher_argv
+
+    work = os.path.join(REPO, "build", "chip_smoke", "sdxl_trainer")  # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    argv = launcher_argv(os.path.join(REPO, SDXL_LAUNCHER))
+    i = argv.index("--training_prompts") + 1
+    argv[i] = os.path.join(REPO, argv[i])
+    index, encode_shapes = encode_latent_store(torch, fa, cv, kernels,
+                                               os.path.join(work, "gan_store"), argv[i],
+                                               sdxl=True, batch=SDXL_BATCH)
+    out = os.path.join(work, "output")
+    argv += ["--gan_gt_path", index, "--max_train_steps", str(SDXL_STEPS),
+             "--output_dir", out]
+    log("  argv: " + " ".join(argv))
+    probe = lambda: counts_by_role(fa, cv)  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    t0 = time.perf_counter()
+    trainer = train_main(argv, probe=probe)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = counts_by_role(fa, cv)
+    roles = _cli_roles(trainer)
+    n_lora = sum(p.numel() for p in trainer.state.trainable.values()) / 1e6
+    n_d = sum(p.numel() for p in trainer.d_state.trainable.values()) / 1e6
+    log(f"  G: SDXL UNet {sum(p.numel() for p in trainer.pipeline.unet.parameters()) / 1e6:.1f}"
+        f" M parameters ({n_lora:.1f} M LoRA); D: an SD1.5 UNet of its own (cross_arch "
+        f"{trainer.disc.gan_cfg.cross_arch}), {n_d:.1f} M trainable")
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    keys = ("s_step", *ts.PHASES)
+    for r in rows:
+        log(f"  step {r['step']}: loss {r['step_loss']:.4f}, G_loss {r['G_loss']:.4f}, "
+            f"D_loss {r['D_loss']:.4f}, token_loss {r['token_loss']:.4f}, grad_norm "
+            f"{r['grad_norm']:.4e}; {r['sec_per_step']:.3f} s wall; "
+            + ", ".join(f"{k} {r[k]:.3f}" for k in keys))
+    median = _median(rows[1:], ("sec_per_step",) + keys)
+    log(f"  sdxl_trainer: {median['s_step']:.3f} s per step on the device "
+        f"({median['sec_per_step']:.3f} s wall, median of steps 2-{SDXL_STEPS}), peak "
+        f"memory {peak:.1f} GiB, run {wall:.1f} s (2 checkpoints); phase 9, same run: "
+        f"{cli_median['s_step']:.3f} s, {cli_peak:.1f} GiB")
+    log("  split: " + ", ".join(f"{k} {median[k]:.3f} s" for k in ts.PHASES))
+    want_roles = {role: {k: n * SDXL_STEPS for k, n in c.items()}
+                  for role, c in SDXL_CLI_LAUNCHES.items()}
+    for role in FULL_ROLES:
+        log(f"  launches by role, {SDXL_STEPS} steps: {role} {roles[role]} (predicted "
+            f"{want_roles[role]})")
+    want = {k: sum(c.get(k, 0) for c in want_roles.values()) for k in counts}
+    log(f"  launches in all {counts}, predicted {want}")
+    if len(rows) != SDXL_STEPS or not all(
+            math.isfinite(r[k]) for r in rows for k in ("step_loss", "G_loss", "D_loss",
+                                                        "token_loss", "pixel_loss",
+                                                        "grad_norm")):
+        raise AssertionError(f"SDXL trainer metrics: {rows}")
+    if not (trainer.pcfg.is_sdxl and trainer.disc.gan_cfg.cross_arch
+            and all(r["s_segment"] > 0 for r in rows)):
+        raise AssertionError("the SDXL trainer did not run the recipe's D and split step")
+    if roles != want_roles or counts != want:
+        raise AssertionError(f"SDXL trainer launched {counts} ({roles}), expected {want} "
+                             f"({want_roles})")
+    ckpts = sorted(d for d in os.listdir(out) if d.startswith("checkpoint-"))
+    last = os.path.join(out, f"checkpoint-{SDXL_STEPS}")
+    log(f"  {ckpts}, {sorted(os.listdir(last))}")
+    if ckpts != ["checkpoint-0", f"checkpoint-{SDXL_STEPS}"] or not os.path.isfile(
+            os.path.join(last, "pytorch_lora_weights.safetensors")):
+        raise AssertionError(f"SDXL trainer output: {ckpts}")
+    shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes, encode_shapes, median, peak
+
+
 def main() -> int:
     import torch
 
@@ -1439,7 +1681,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("[1/10] build")
+    log("[1/12] build")
     t0 = time.perf_counter()
     paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
@@ -1452,50 +1694,61 @@ def main() -> int:
     phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    log("[2/10] kernels against their plain versions")
+    log("[2/12] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/10] generation: SD1.5 fp32 256^2 card vs CPU")
+    log("[3/12] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    log("[4/10] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
+    log("[4/12] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    log("[5/10] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    log("[5/12] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
     gen_shapes = phase_main(torch, kernels)
 
-    log("[6/10] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    log("[6/12] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
     train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    log("[7/10] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    log("[7/12] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
     tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
 
-    log("[8/10] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
+    log("[8/12] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
     full_shapes, full_median, full_peak = phase_train_full(torch, fa, cv, kernels, pipe,
                                                            blip, batch)
     del pipe, blip, batch
 
-    log("[9/10] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
+    log("[9/12] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
         f"512^2, batch 4, {CLI_STEPS} steps, then a run resumed at step {CLI_RESUME}")
-    cli_shapes, encode_shapes = phase_trainer_cli(torch, fa, cv, kernels, full_median,
-                                                  full_peak)
+    cli_shapes, encode_shapes, cli_median, cli_peak = phase_trainer_cli(
+        torch, fa, cv, kernels, full_median, full_peak)
 
-    log("[10/10] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
+    log("[10/12] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
         "then bf16 at batch 4")
     phase_gsam(torch)
+
+    log("[11/12] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
+        "fp32 card vs CPU")
+    phase_sdxl_parity(torch, fa, cv, kernels)
+
+    log("[12/12] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
+        f"Grounded-SAM, remat), 512^2, batch {SDXL_BATCH}, {SDXL_STEPS} steps")
+    sdxl_shapes, sdxl_encode_shapes, _, _ = phase_sdxl_trainer(torch, fa, cv, kernels,
+                                                               cli_median, cli_peak)
 
     # launches: those of the driven paths, each counted from 0 just before
     # it: generation, the reduced recipe's train step, the same with the
     # VAE trained (bf16), dw in the fp32 train step with the VAE trained
     # (phase 4's card run), the full recipe's step, the latent store's
-    # encoding and the trainer CLI's two runs
+    # encoding and the trainer CLI's two runs, SDXL's latent store and
+    # its trainer CLI's run
     paths = {"generate": gen_shapes, "train": train_shapes,
              "train_tune_vae_bf16": tune_bf16_shapes,
              "train_tune_vae": {cv.DW_KERNEL.symbol: tune_vae_shapes[cv.DW_KERNEL.symbol]},
              "train_full": full_shapes, "gan_store_encode": encode_shapes,
-             "trainer_cli": cli_shapes}
+             "trainer_cli": cli_shapes, "sdxl_gan_store_encode": sdxl_encode_shapes,
+             "sdxl_trainer_cli": sdxl_shapes}
     for e in entries:
         key = tuple(e.pop("key"))
         for path, shapes in paths.items():
@@ -1523,6 +1776,9 @@ def main() -> int:
             log(f"  {name} on the {path} path: {n} launches x ms = "
                 f"{total_ms['ms']:.1f} ms (plain {total_ms['plain_ms']:.1f}, "
                 f"library {total_ms['library_ms']:.1f}, bound {total_ms['bound_ms']:.2f})")
+            if path == "sdxl_trainer_cli":      # its steps alone: no validation
+                log(f"    a step of the SDXL trainer: {n / SDXL_STEPS:g} launches, "
+                    + ", ".join(f"{k} {v / SDXL_STEPS:.2f}" for k, v in total_ms.items()))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     # "kernels": the shapes the driven paths launched; "checks": the other
     # comparisons (fp32, ragged keys), with the same keys

@@ -1,15 +1,16 @@
-"""Model geometry for the PyTorch port (SD1.5 and tiny test geometries).
+"""Model geometry for the PyTorch port (SD1.5, SDXL and tiny test
+geometries).
 
 Port of comat_tpu/config.py (`UNetConfig`, `CLIPTextConfig`, `VAEConfig`,
 `BLIPConfig`) with torch dtypes. `dtype` is the compute dtype of the
-frozen weights: bf16 for SD1.5 and BLIP-large, fp32 for the tiny CPU
-geometries.
+frozen weights: bf16 for SD1.5, SDXL and BLIP-large, fp32 for the tiny
+CPU geometries.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,7 +19,9 @@ import torch
 class UNetConfig:
     """Geometry of a UNet2DCondition model. `down_block_types`: "cross"
     (CrossAttnDownBlock2D) or "down"; `up_block_types`: "cross" or "up",
-    in forward order as in diffusers."""
+    in forward order as in diffusers. SDXL's `addition_embed_type`
+    "text_time" adds the pooled text embed and the sinusoids of the six
+    size and crop ids to the time embedding."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -30,11 +33,26 @@ class UNetConfig:
     num_attention_heads: Tuple[int, ...] = (8, 8, 8, 8)
     cross_attention_dim: int = 768
     norm_num_groups: int = 32
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
     def sd15() -> "UNetConfig":
         return UNetConfig()
+
+    @staticmethod
+    def sdxl() -> "UNetConfig":
+        return UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            down_block_types=("down", "cross", "cross"),
+            up_block_types=("cross", "cross", "up"),
+            transformer_layers_per_block=(0, 2, 10),
+            num_attention_heads=(5, 10, 20),
+            cross_attention_dim=2048,
+            addition_embed_type="text_time",
+        )
 
     @staticmethod
     def tiny(cross_attention_dim: int = 32) -> "UNetConfig":
@@ -47,10 +65,31 @@ class UNetConfig:
             dtype=torch.float32,
         )
 
+    @staticmethod
+    def tiny_xl(cross_attention_dim: int = 32) -> "UNetConfig":
+        """CPU-runnable SDXL-topology geometry."""
+        return UNetConfig(
+            block_out_channels=(32, 64, 64),
+            down_block_types=("down", "cross", "cross"),
+            up_block_types=("cross", "cross", "up"),
+            transformer_layers_per_block=(0, 1, 2),
+            num_attention_heads=(2, 2, 2),
+            cross_attention_dim=cross_attention_dim,
+            norm_num_groups=8,
+            addition_embed_type="text_time",
+            addition_time_embed_dim=32,
+            # the tiny pooled embed (32) and six 32-wide sinusoids; JAX's
+            # config says 32 * 6 + 64, which its shape-inferring Dense ignores
+            projection_class_embeddings_input_dim=32 + 6 * 32,
+            dtype=torch.float32,
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class CLIPTextConfig:
-    """CLIP text tower (SD1.5 uses the OpenAI ViT-L/14 text encoder)."""
+    """CLIP text tower: SD1.5 and SDXL's first use the OpenAI ViT-L/14
+    text encoder (quick_gelu), SDXL's second OpenCLIP bigG (exact gelu,
+    a `text_projection` of the pooled output to `projection_dim`)."""
 
     vocab_size: int = 49408
     hidden_size: int = 768
@@ -59,11 +98,23 @@ class CLIPTextConfig:
     num_heads: int = 12
     max_length: int = 77
     hidden_act: str = "quick_gelu"
+    projection_dim: Optional[int] = None
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
     def sd15() -> "CLIPTextConfig":
         return CLIPTextConfig()
+
+    @staticmethod
+    def sdxl_big_g() -> "CLIPTextConfig":
+        return CLIPTextConfig(
+            hidden_size=1280,
+            intermediate_size=5120,
+            num_layers=32,
+            num_heads=20,
+            hidden_act="gelu",
+            projection_dim=1280,
+        )
 
     @staticmethod
     def tiny(vocab_size: int = 1000) -> "CLIPTextConfig":
@@ -79,7 +130,8 @@ class CLIPTextConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
-    """AutoencoderKL geometry; SD1.5 latents are scaled by 0.18215."""
+    """AutoencoderKL geometry; SD1.5 latents are scaled by 0.18215, SDXL's
+    by 0.13025 (the same architecture)."""
 
     in_channels: int = 3
     latent_channels: int = 4
@@ -92,6 +144,10 @@ class VAEConfig:
     @staticmethod
     def sd15() -> "VAEConfig":
         return VAEConfig()
+
+    @staticmethod
+    def sdxl() -> "VAEConfig":
+        return VAEConfig(scaling_factor=0.13025)
 
     @staticmethod
     def tiny() -> "VAEConfig":

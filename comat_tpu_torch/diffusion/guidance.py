@@ -4,12 +4,13 @@ Port of comat_tpu/diffusion/guidance.py (`rescale_noise_cfg`,
 `make_cfg_eps_model`, without attention capture). With guidance, the
 UNet runs once on the [uncond; cond] 2B batch, uncond first, and the
 halves are recombined, optionally with guidance rescale (arXiv
-2305.08891 §3.4).
+2305.08891 §3.4). SDXL's added condition is concatenated the same way,
+null first, key by key.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -31,19 +32,30 @@ def make_cfg_eps_model(
     null_context: Optional[torch.Tensor],
     guidance_scale: float,
     guidance_rescale: float = 0.0,
+    added_cond: Optional[Dict[str, torch.Tensor]] = None,
+    null_added_cond: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Callable:
     """Returns eps_model(latents, t) -> guided eps.
 
-    `unet_apply(latents, t, context)` -> eps. `null_context=None` or
-    `guidance_scale <= 1` turns guidance off."""
+    `unet_apply(latents, t, context)` -> eps, or with `added_cond` (SDXL)
+    `unet_apply(latents, t, context, added_cond)`. `null_context=None` or
+    `guidance_scale <= 1` turns guidance off. `null_added_cond` defaults
+    to `added_cond`, as in JAX."""
     do_cfg = null_context is not None and guidance_scale > 1.0
     ctx2 = torch.cat([null_context, context], dim=0) if do_cfg else None
+    extra, extra2 = (), ()
+    if added_cond is not None:
+        extra = (added_cond,)
+        if do_cfg:
+            nac = added_cond if null_added_cond is None else null_added_cond
+            extra2 = ({k: torch.cat([nac[k], added_cond[k]], dim=0)
+                       for k in added_cond},)
 
     def eps_model(latents: torch.Tensor, t) -> torch.Tensor:
         if not do_cfg:
-            return unet_apply(latents, t, context)
+            return unet_apply(latents, t, context, *extra)
         B = latents.shape[0]
-        eps2 = unet_apply(torch.cat([latents, latents], dim=0), t, ctx2)
+        eps2 = unet_apply(torch.cat([latents, latents], dim=0), t, ctx2, *extra2)
         eps_uncond, eps_text = eps2[:B], eps2[B:]
         eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
         if guidance_rescale > 0.0:

@@ -20,6 +20,11 @@ with the saved eps, which are affine in the latent. With capture
 latents of the A chosen segments: each computes the cond-half
 cross-attention maps, and its backward re-runs that forward with
 gradients on.
+
+SDXL's added condition (the pooled text embed and the size and crop ids)
+rides in the eps models and capture primals the pipeline passes: a
+constant of the op, not one of its inputs, so no gradient flows to it
+(the pipeline refuses to train the text towers under SDXL).
 """
 
 from __future__ import annotations

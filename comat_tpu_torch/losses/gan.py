@@ -16,14 +16,18 @@ latents at the final inference timestep under the null-text condition.
 
 `share_base_unet` makes D's frozen base the generator's own UNet tensors
 (the same objects, not copies), as `trainer.py::_share_base_unet` makes
-D's base the generator's pretrained weights.
+D's base the generator's pretrained weights. An SDXL D (same
+architecture as an SDXL generator) takes SDXL's added condition; a
+cross-architecture D (`GanConfig.cross_arch`: the published SDXL recipe's
+SD1.5-architecture D over SDXL latents) owns its own SD1.5 UNet, shares
+nothing and takes no added condition.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterable, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +44,9 @@ class GanConfig:
     lora_rank: int = 32
     lastlayer_cls: bool = False     # --gan_unet_lastlayer_cls
     condition_discriminator: bool = False
+    # --gan_model_arch of the other family than the generator's: D's text
+    # condition is then CLIP-L's final states (768), not SDXL's concat
+    cross_arch: bool = False
 
 
 class DiscriminatorHead(nn.Module):
@@ -88,10 +95,11 @@ class Discriminator(nn.Module):
         *path, leaf = name.split(".")
         return self.get_submodule(".".join(path)), leaf
 
-    def logits(self, latents: torch.Tensor, t, null_context: torch.Tensor
-               ) -> torch.Tensor:
-        """(B, h, w, 1) classification logits at timestep t."""
-        eps = self.unet(latents, t, null_context)
+    def logits(self, latents: torch.Tensor, t, null_context: torch.Tensor,
+               added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """(B, h, w, 1) classification logits at timestep t (`added_cond`:
+        an SDXL D's)."""
+        eps = self.unet(latents, t, null_context, added_cond)
         if self.head is None:
             return eps      # conv_out already emits one channel
         return self.head(eps.float())
@@ -135,23 +143,27 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
 
 
 def gan_g_loss(disc: Discriminator, gen_latents: torch.Tensor, t_final,
-               null_context: torch.Tensor) -> torch.Tensor:
+               null_context: torch.Tensor,
+               added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """Generator side: fool D toward "real". Differentiable with respect
     to `gen_latents` only."""
     with frozen(disc.parameters()):
-        logits = disc.logits(gen_latents, t_final, null_context)
+        logits = disc.logits(gen_latents, t_final, null_context, added_cond)
     return bce_with_logits(logits, torch.ones_like(logits, dtype=torch.float32))
 
 
 def gan_d_loss(disc: Discriminator, gen_latents: torch.Tensor,
                gt_latents: torch.Tensor, t_final,
-               null_context: torch.Tensor) -> torch.Tensor:
+               null_context: torch.Tensor,
+               added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """Discriminator side: generated latents 0, ground-truth latents 1."""
     gen = gen_latents.detach()
     lat = torch.cat([gen, gt_latents.to(gen.device, gen.dtype)], dim=0)
     B = gen.shape[0]
     ctx2 = torch.cat([null_context, null_context], dim=0)
-    logits = disc.logits(lat, t_final, ctx2)
+    ac2 = None if added_cond is None else {
+        k: torch.cat([v, v], dim=0) for k, v in added_cond.items()}
+    logits = disc.logits(lat, t_final, ctx2, ac2)
     targets = torch.cat([torch.zeros_like(logits[:B], dtype=torch.float32),
                          torch.ones_like(logits[B:], dtype=torch.float32)])
     return bce_with_logits(logits, targets)

@@ -1,10 +1,16 @@
-"""CLIP text encoder (the SD1.5 ViT-L/14 text tower) in PyTorch.
+"""CLIP text encoders in PyTorch: the ViT-L/14 text tower (SD1.5, SDXL's
+first) and OpenCLIP bigG (SDXL's second).
 
-Port of comat_tpu/models/clip_text.py for SD1.5: causal attention with a
--1e30 mask and an fp32 softmax, quick_gelu, final LayerNorm, and the
-pooled output taken at each row's EOS position. Parameter names follow
-transformers' CLIPTextModel (`text_model.embeddings...`,
-`text_model.encoder.layers.{i}...`, `text_model.final_layer_norm`).
+Port of comat_tpu/models/clip_text.py: causal attention with a -1e30
+mask and an fp32 softmax, quick_gelu or exact gelu, final LayerNorm, and
+the pooled output taken at each row's EOS position from the final
+LayerNorm'd states, projected by `text_projection` (fp32) where the
+config has a `projection_dim`. `output_hidden_state_skip=1` returns the
+input to the last layer, without the final LayerNorm, as SDXL reads both
+towers (transformers' `hidden_states[-2]`). Parameter names follow
+transformers' CLIPTextModel(WithProjection) (`text_model.embeddings...`,
+`text_model.encoder.layers.{i}...`, `text_model.final_layer_norm`,
+`text_projection`).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ class CLIPMLP(nn.Module):
     def __init__(self, cfg: CLIPTextConfig, device=None):
         super().__init__()
         kw = dict(dtype=cfg.dtype, device=device)
+        # "gelu" is the exact (erf) GELU, without the tanh approximation
         self.act = quick_gelu if cfg.hidden_act == "quick_gelu" else F.gelu
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
@@ -110,27 +117,41 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextEncoder(nn.Module):
-    """Returns (hidden_states (B, S, D), pooled (B, D)): the final
-    LayerNorm'd states, and those at each row's EOS position (default
-    S - 1)."""
+    """Returns (hidden_states (B, S, D), pooled (B, D or projection_dim)):
+    the final LayerNorm'd states (or, with `output_hidden_state_skip=n`,
+    the input to the n-th layer from the end, without the final
+    LayerNorm), and the final states at each row's EOS position (default
+    S - 1), through `text_projection` where the config has one."""
 
     def __init__(self, cfg: CLIPTextConfig, device=None):
         super().__init__()
         self.cfg = cfg
         self.text_model = CLIPTextTransformer(cfg, device)
+        self.text_projection = None
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim,
+                                             bias=False, dtype=torch.float32,
+                                             device=device)
 
     def forward(
         self, input_ids: torch.Tensor,
         eos_positions: Optional[torch.Tensor] = None,
+        output_hidden_state_skip: int = 0,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         tm = self.text_model
         B, S = input_ids.shape
         x = tm.embeddings(input_ids)
         causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
-        for layer in tm.encoder.layers:
+        n = len(tm.encoder.layers)
+        penult = None
+        for i, layer in enumerate(tm.encoder.layers):
+            if output_hidden_state_skip and i == n - output_hidden_state_skip:
+                penult = x
             x = layer(x, causal)
         final = tm.final_layer_norm(x)
         if eos_positions is None:
             eos_positions = torch.full((B,), S - 1, device=x.device)
         pooled = final[torch.arange(B, device=x.device), eos_positions.long()]
-        return final, pooled
+        if self.text_projection is not None:
+            pooled = self.text_projection(pooled.float()).to(final.dtype)
+        return (final if output_hidden_state_skip == 0 else penult), pooled

@@ -1,10 +1,16 @@
-"""Diffusion pipeline bundle: CLIP text encoder + UNet + VAE decoder +
+"""Diffusion pipeline bundle: CLIP text encoder(s) + UNet + VAE decoder +
 sampler, for text-to-image generation.
 
 Port of comat_tpu/models/pipeline.py (`PipelineConfig`,
-`make_pipeline_config`, `DiffusionPipeline.encode_prompt / unet_apply /
-decode_image / fused_unet / forward / presample / generate`) for SD1.5
-and its tiny test geometry. The pipeline owns its modules and their
+`make_pipeline_config`, `DiffusionPipeline.encode_prompt /
+sdxl_added_cond / unet_apply / decode_image / fused_unet / forward /
+presample / generate`) for SD1.5 and SDXL and their tiny test geometries.
+SDXL runs two text towers (CLIP-L and OpenCLIP bigG, `text2`), reads
+the penultimate states of both, concatenated, and conditions the UNet on
+the projected pooled output of the second and the six size and crop ids
+(`sdxl_added_cond`), guided null first like the context. The added
+condition enters the replay and the capture forwards as a constant: no
+gradient flows to it. The pipeline owns its modules and their
 weights on one device: CUDA unless the caller asks for the CPU. Every
 module is built frozen (`requires_grad` off); the train step marks the
 trainable tensors (`training.train_step.partition_params`), and
@@ -12,7 +18,7 @@ trainable tensors (`training.train_step.partition_params`), and
 `capture=True` it also returns the cross-attention maps of the layers
 `cfg.capture_layers` at the chosen replay segments (attribute
 concentration). `forward(remat=)` and `DiffusionPipeline(fuse_pass1=False)`
-are JAX's memory-tight options (--gradient_checkpointing). SDXL is not ported yet.
+are JAX's memory-tight options (--gradient_checkpointing).
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ class PipelineConfig:
     unet: UNetConfig
     text: CLIPTextConfig
     vae: VAEConfig
+    text2: Optional[CLIPTextConfig] = None   # SDXL's second text tower
+    is_sdxl: bool = False
     attrcon: bool = False
     capture_layers: Tuple[str, ...] = ()
     lora_rank: int = 32
@@ -65,18 +73,37 @@ class PipelineConfig:
 # counterparts at the tiny geometry's resolutions.
 SD15_CAPTURE = ("mid_8", "up_16", "up_32", "up_64")
 TINY_CAPTURE = ("mid_2", "up_4", "up_8", "up_16")
+# SDXL's list (training_script.py:312) and its tiny counterpart
+SDXL_CAPTURE = ("mid_16", "up_16", "up_32")
+TINY_XL_CAPTURE = ("mid_4", "up_4", "up_8")
 
 
 def make_pipeline_config(
     name: str, lora_rank: int = 32, resolution: int = 512, tiny: bool = False,
 ) -> PipelineConfig:
-    """`sd_1_5` and `sd_1_5_attrcon` at full or tiny width. A name with
-    "attrcon" turns attribute concentration on (`attrcon`); either name
-    carries the capture layer list, as in JAX."""
-    if not name.startswith("sd_1_5"):
-        raise ValueError(f"unknown or not yet ported pipeline {name!r}")
+    """`sd_1_5*` and `sdxl*` (sdxl, sdxl_unet, sdxl_attrcon,
+    sdxl_attrcon_unet) at full or tiny width. A name with "attrcon" turns
+    attribute concentration on (`attrcon`); every name carries its
+    family's capture layer list, as in JAX. The tiny SDXL UNet's context
+    is the two tiny towers' concatenation (32 + 32), as the real one's is
+    768 + 1280."""
     kw = dict(attrcon="attrcon" in name, lora_rank=lora_rank,
               resolution=resolution)
+    if name.startswith("sdxl"):
+        if tiny:
+            return PipelineConfig(
+                unet=UNetConfig.tiny_xl(cross_attention_dim=64),
+                text=CLIPTextConfig.tiny(), vae=VAEConfig.tiny(),
+                text2=CLIPTextConfig.tiny(), is_sdxl=True,
+                capture_layers=TINY_XL_CAPTURE, **kw,
+            )
+        return PipelineConfig(
+            unet=UNetConfig.sdxl(), text=CLIPTextConfig.sd15(), vae=VAEConfig.sdxl(),
+            text2=CLIPTextConfig.sdxl_big_g(), is_sdxl=True,
+            capture_layers=SDXL_CAPTURE, **kw,
+        )
+    if not name.startswith("sd_1_5"):
+        raise ValueError(f"unknown pipeline {name!r}")
     if tiny:
         return PipelineConfig(
             unet=UNetConfig.tiny(), text=CLIPTextConfig.tiny(),
@@ -101,7 +128,10 @@ def resolve_device(device=None) -> torch.device:
 
 class EncodedPrompt(NamedTuple):
     context: torch.Tensor            # (B, L, D)
-    pooled: Optional[torch.Tensor]   # SDXL only; None for SD1.5
+    pooled: Optional[torch.Tensor]   # (B, Dp) SDXL only; None for SD1.5
+
+
+AddedCond = Optional[Dict[str, torch.Tensor]]
 
 
 def _build(module_fn, device: torch.device):
@@ -134,9 +164,9 @@ class _MasterView(torch.autograd.Function):
 class DiffusionPipeline:
     """Modules and weights on one device.
 
-    `params` is {"unet", "text", "vae"} state dicts (as `state_dicts()`
-    returns or `weights.from_jax_params` makes); without it the weights
-    are drawn from `seed` (`weights.init_weights_`).
+    `params` is {"unet", "text", "vae"} state dicts, and "text2" for
+    SDXL (as `state_dicts()` returns or `weights.from_jax_params` makes);
+    without it the weights are drawn from `seed` (`weights.init_weights_`).
 
     `fuse_pass1=False` (JAX's memory-tight flag, --gradient_checkpointing)
     builds no LoRA-free twin `unet_inf`: it would hold a second copy of
@@ -161,28 +191,31 @@ class DiffusionPipeline:
             self._twin() if fuse_pass1 else None)
         self.text = _build(lambda: CLIPTextEncoder(cfg.text), self.device)
         self.vae = _build(lambda: AutoencoderKL(cfg.vae), self.device)
+        self.text2 = None if cfg.text2 is None else _build(
+            lambda: CLIPTextEncoder(cfg.text2), self.device)
         self.schedule: DiffusionSchedule = make_schedule()
         # fp32 masters of bf16 trained tensors by name ("text.<name>",
         # "vae.<name>"), set by the train state (`set_masters`)
         self.masters: Dict[str, torch.Tensor] = {}
         if params is None:
             g = torch.Generator(device=self.device).manual_seed(seed)
-            for module in (self.unet, self.text, self.vae):
+            for module in self._towers().values():
                 init_weights_(module, g)
         else:
             self.load_params(params)
 
+    def _towers(self) -> Dict[str, torch.nn.Module]:
+        towers = {"unet": self.unet, "text": self.text, "vae": self.vae}
+        if self.text2 is not None:
+            towers["text2"] = self.text2
+        return towers
+
     def load_params(self, params: Dict[str, Dict[str, torch.Tensor]]) -> None:
-        self.unet.load_state_dict(params["unet"])
-        self.text.load_state_dict(params["text"])
-        self.vae.load_state_dict(params["vae"])
+        for name, module in self._towers().items():
+            module.load_state_dict(params[name])
 
     def state_dicts(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        return {
-            "unet": self.unet.state_dict(),
-            "text": self.text.state_dict(),
-            "vae": self.vae.state_dict(),
-        }
+        return {name: module.state_dict() for name, module in self._towers().items()}
 
     def _twin(self) -> torch.nn.Module:
         return _build(lambda: UNet2DConditionModel(self.cfg.unet, lora_rank=0),
@@ -212,26 +245,70 @@ class DiffusionPipeline:
 
     # ---- text ----
     def encode_prompt(self, input_ids, eos_positions=None,
-                      train_text_encoder: bool = False) -> EncodedPrompt:
-        """SD1.5: the final-layer hidden states, with a gradient only for
-        `train_text_encoder`."""
+                      train_text_encoder: bool = False,
+                      input_ids2=None) -> EncodedPrompt:
+        """SD1.5: the final-layer hidden states. SDXL: the penultimate
+        states of both towers, concatenated, and the projected pooled
+        output of the second, taken at `eos_positions` (S - 1 when None);
+        tower 2 reads `input_ids2` (the pad-id-0 tokenizer's ids), else
+        `input_ids`. A gradient only for `train_text_encoder`."""
         eos = None if eos_positions is None else self._ids(eos_positions)
         with torch.set_grad_enabled(train_text_encoder and torch.is_grad_enabled()):
-            hidden, _ = self._tower("text", self.text, self._ids(input_ids), eos)
-        return EncodedPrompt(hidden, None)
+            if not self.cfg.is_sdxl:
+                hidden, _ = self._tower("text", self.text, self._ids(input_ids), eos)
+                return EncodedPrompt(hidden, None)
+            h1, _ = self._tower("text", self.text, self._ids(input_ids), eos,
+                                output_hidden_state_skip=1)
+            ids2 = input_ids if input_ids2 is None else input_ids2
+            h2, pooled = self._tower("text2", self.text2, self._ids(ids2), eos,
+                                     output_hidden_state_skip=1)
+        return EncodedPrompt(torch.cat([h1, h2], dim=-1), pooled)
+
+    def sdxl_added_cond(self, pooled: torch.Tensor, batch: int) -> Dict[str, torch.Tensor]:
+        """SDXL's added condition: {"text_embeds": pooled, "time_ids"
+        (B, 6) fp32: original size, crop top-left, target size}, the sizes
+        the resolution and the crop (0, 0), as every caller of JAX's
+        `sdxl_added_cond` takes them (reference TrainableSDPipeline.py:428-449)."""
+        r = self.cfg.resolution
+        time_ids = torch.tensor([[r, r, 0, 0, r, r]], dtype=torch.float32,
+                                device=pooled.device)
+        return {"text_embeds": pooled, "time_ids": time_ids.expand(batch, 6)}
+
+    def _encode_pair(self, input_ids, null_ids, eos_positions, null_eos_positions,
+                     input_ids2, null_ids2, train_text_encoder: bool = False):
+        """The prompts' and the null prompts' encodings, and with SDXL their
+        added conditions (else None), as JAX's forward makes them: the null
+        prompts' tower 2 reads `null_ids2`, else `null_ids`."""
+        if self.cfg.is_sdxl and train_text_encoder:
+            raise NotImplementedError(
+                "train_text_encoder with SDXL: the pooled embed's gradient through "
+                "the added condition is not carried")
+        # input_ids2 only where given: the SD1.5 call keeps its three arguments
+        kw = {} if input_ids2 is None else {"input_ids2": input_ids2}
+        nkw = {} if null_ids2 is None else {"input_ids2": null_ids2}
+        enc = self.encode_prompt(input_ids, eos_positions, train_text_encoder, **kw)
+        nenc = self.encode_prompt(null_ids, null_eos_positions, train_text_encoder,
+                                  **nkw)
+        added = null_added = None
+        if self.cfg.is_sdxl:
+            B = enc.context.shape[0]
+            added = self.sdxl_added_cond(enc.pooled, B)
+            null_added = self.sdxl_added_cond(nenc.pooled, B)
+        return enc, nenc, added, null_added
 
     # ---- unet / vae ----
-    def unet_apply(self, latents, t, context, fused: bool = False,
-                   capture: bool = False, remat: Remat = False):
+    def unet_apply(self, latents, t, context, added_cond: AddedCond = None,
+                   fused: bool = False, capture: bool = False, remat: Remat = False):
         """eps for latents (B, h, w, 4); with `capture`, (eps, maps of
-        `cfg.capture_layers`). `fused=True` runs the LoRA-free twin, which
-        must hold the fused weights (`fused_unet()` loads them). `remat`: block checkpointing
+        `cfg.capture_layers`). `added_cond`: SDXL's (`sdxl_added_cond`).
+        `fused=True` runs the LoRA-free twin, which must hold the fused
+        weights (`fused_unet()` loads them). `remat`: block checkpointing
         (`UNet2DConditionModel.forward`)."""
         unet = self.unet_inf if fused else self.unet
         if capture:
-            return unet(latents, t, context, capture=True,
+            return unet(latents, t, context, added_cond, capture=True,
                         capture_layers=self.cfg.capture_layers, remat=remat)
-        return unet(latents, t, context, remat=remat)
+        return unet(latents, t, context, added_cond, remat=remat)
 
     def decode_image(self, latents: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """latents (B, h, w, 4) -> image (B, 8h, 8w, 3) as
@@ -257,14 +334,18 @@ class DiffusionPipeline:
         return self.fused_unet() if self.unet_inf is not None else self.unet
 
     def _pass1_eps_model(self, context, null_context, guidance_scale,
-                         guidance_rescale, unet: torch.nn.Module):
+                         guidance_rescale, unet: torch.nn.Module,
+                         added: AddedCond = None, null_added: AddedCond = None):
         """Pass 1's guided eps through `unet`, no gradients."""
+        detach = lambda ac: None if ac is None else {  # noqa: E731
+            k: v.detach() for k, v in ac.items()}
         return make_cfg_eps_model(
-            lambda lat, t, ctx: unet(lat, t, ctx),
+            lambda lat, t, ctx, *ac: unet(lat, t, ctx, *ac),
             context.detach(),
             null_context.detach() if guidance_scale > 1.0 else None,
             guidance_scale,
             guidance_rescale,
+            detach(added), detach(null_added),
         )
 
     # ---- the CoMat forward ----
@@ -280,6 +361,8 @@ class DiffusionPipeline:
         guidance_rescale: float = 0.0,
         eos_positions=None,
         null_eos_positions=None,
+        input_ids2=None,
+        null_ids2=None,
         train_text_encoder: bool = False,
         latents0: Optional[torch.Tensor] = None,
         step_noise: Optional[torch.Tensor] = None,
@@ -296,7 +379,10 @@ class DiffusionPipeline:
         K trained steps and the VAE decode with respect to every UNet
         tensor that requires grad (the LoRA factors in the default
         recipe), the VAE's where they require grad, and the text
-        encoder's under `train_text_encoder`. Pass 1 runs without
+        encoder's under `train_text_encoder` (SD1.5 only). SDXL: tower 2
+        reads `input_ids2` / `null_ids2` where given (else `input_ids` /
+        `null_ids`), and the null prompts' pooled embed is taken at
+        `null_eos_positions`, S - 1 when None, as in JAX. Pass 1 runs without
         gradients, on the fused LoRA-free twin where the pipeline holds one
         (else on the LoRA'd UNet, unfused); pass 2 replays the K segments with cached-primal
         UNet calls (`diffusion.sampler.sample_comat`).
@@ -324,8 +410,9 @@ class DiffusionPipeline:
         backward of each replay and capture op (see `sample_comat`) and
         when the decode's backward ends ("decode_bwd>")."""
         cfg = self.cfg
-        enc = self.encode_prompt(input_ids, eos_positions, train_text_encoder)
-        nenc = self.encode_prompt(null_ids, null_eos_positions, train_text_encoder)
+        enc, nenc, added, null_added = self._encode_pair(
+            input_ids, null_ids, eos_positions, null_eos_positions, input_ids2,
+            null_ids2, train_text_encoder)
         B = enc.context.shape[0]
         coeffs = make_sampler_coeffs(self.schedule, num_inference_steps, kind="ddpm")
         if latents0 is None and presampled is None:
@@ -339,7 +426,8 @@ class DiffusionPipeline:
         if presampled is None:
             _, eps_table, traj = sample_inference(
                 self._pass1_eps_model(enc.context, nenc.context, guidance_scale,
-                                      guidance_rescale, self._pass1_unet()),
+                                      guidance_rescale, self._pass1_unet(), added,
+                                      null_added),
                 coeffs, latents0.to(self.device), step_noise=step_noise,
             )
         else:
@@ -349,8 +437,9 @@ class DiffusionPipeline:
 
         def diff_eps_model(lat, t, context, null_context):
             return make_cfg_eps_model(
-                lambda l, tt, ctx: self.unet_apply(l, tt, ctx, remat=remat),
+                lambda l, tt, ctx, *ac: self.unet_apply(l, tt, ctx, *ac, remat=remat),
                 context, null_context, guidance_scale, guidance_rescale,
+                added, null_added,
             )(lat, t)
 
         capture_primal = None
@@ -358,7 +447,7 @@ class DiffusionPipeline:
             cap_dtype = cfg.unet.dtype
 
             def capture_primal(lat, t, context):
-                _, maps = self.unet_apply(lat, t, context, capture=True)
+                _, maps = self.unet_apply(lat, t, context, added, capture=True)
                 return {key: [m.to(cap_dtype) for m in v] for key, v in maps.items()}
 
         result = sample_comat(
@@ -389,6 +478,8 @@ class DiffusionPipeline:
         guidance_rescale: float = 0.0,
         eos_positions=None,
         null_eos_positions=None,
+        input_ids2=None,
+        null_ids2=None,
         latents0: Optional[torch.Tensor] = None,
         step_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
@@ -399,11 +490,12 @@ class DiffusionPipeline:
         image unclamped; the tables go to `forward(presampled=...)` with the
         same `step_noise`. Pass 1 runs as in `forward`; `mark("pass1")` is
         called after it, before the decode."""
-        enc = self.encode_prompt(input_ids, eos_positions)
-        nenc = self.encode_prompt(null_ids, null_eos_positions)
+        enc, nenc, added, null_added = self._encode_pair(
+            input_ids, null_ids, eos_positions, null_eos_positions, input_ids2,
+            null_ids2)
         eps_model = self._pass1_eps_model(
             enc.context, nenc.context, guidance_scale, guidance_rescale,
-            self._pass1_unet())
+            self._pass1_unet(), added, null_added)
         if latents0 is None:
             latents0 = prepare_latents(
                 generator, enc.context.shape[0], self.cfg.resolution,
@@ -431,6 +523,8 @@ class DiffusionPipeline:
         guidance_scale: float = 7.5,
         guidance_rescale: float = 0.0,
         eos_positions=None,
+        input_ids2=None,
+        null_ids2=None,
         kind: str = "ddpm",
         output_type: str = "image",
         latents0: Optional[torch.Tensor] = None,
@@ -445,18 +539,20 @@ class DiffusionPipeline:
         (B, h, w, 4) and `step_noise` (S, B, h, w, 4) when given, else
         draws from `generator` (latents first, then one draw per step;
         DPM++ draws no noise). `unet`: the sampler, as `fused_unet()`
-        returns it (default: `fused_unet()` for this call). Returns images
+        returns it (default: `fused_unet()` for this call). SDXL: tower 2
+        reads `input_ids2` / `null_ids2` where given, and the null prompts'
+        pooled embed is taken at S - 1. Returns images
         (B, H, W, 3) clipped to [0, 1], or the final latents for
         `output_type="latent"`."""
         if kind not in ("ddpm", "ddim", "dpmpp"):
             raise ValueError(f"unknown scheduler {kind!r} (ddpm, ddim, dpmpp)")
         cfg = self.cfg
-        enc = self.encode_prompt(input_ids, eos_positions)
-        nenc = self.encode_prompt(null_ids, None)
+        enc, nenc, added, null_added = self._encode_pair(
+            input_ids, null_ids, eos_positions, None, input_ids2, null_ids2)
         B = enc.context.shape[0]
         eps_model = self._pass1_eps_model(
             enc.context, nenc.context, guidance_scale, guidance_rescale,
-            unet if unet is not None else self.fused_unet())
+            unet if unet is not None else self.fused_unet(), added, null_added)
         if latents0 is None:
             latents0 = prepare_latents(
                 generator, B, cfg.resolution, cfg.resolution, self.device

@@ -1,11 +1,15 @@
-"""UNet2DCondition (SD1.5 topology) in PyTorch.
+"""UNet2DCondition (SD1.5 and SDXL topologies) in PyTorch.
 
-Port of comat_tpu/models/unet.py: timestep embedding, ResnetBlock,
+Port of comat_tpu/models/unet.py: timestep embedding, SDXL's added
+embedding (`add_embedding` over the pooled text embed and the sinusoids
+of the six size and crop ids, `forward(added_cond=)`), ResnetBlock,
 Attention with LoRA q/k/v/out, GEGLU FeedForward, TransformerBlock,
 Transformer2D, Downsample/Upsample and the UNet itself. Parameter names
 follow diffusers' UNet2DConditionModel, except that the attention
 projections hold their weight under `.base` (see models/lora.py) and the
-transformers' proj_in/proj_out are linear layers. Activations run NCHW in
+transformers' proj_in/proj_out are linear layers (SDXL's are; SD1.5's 1x1
+convs are the same product). Blocks follow the config's per-level depth
+and heads; a level with 0 transformer layers has none. Activations run NCHW in
 channels_last memory; the public layout is the JAX one, latents
 (B, h, w, 4). `forward(..., remat=)` checkpoints the resnet and
 transformer blocks that JAX's `_remat_at` picks (models/remat.py).
@@ -239,6 +243,10 @@ class UNet2DConditionModel(nn.Module):
         n = len(cfg.block_out_channels)
 
         self.time_embedding = TimestepEmbedding(ch0, temb_dim, **kw)
+        self.add_embedding = None
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, temb_dim, **kw)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1, **kw)
 
         self.down_blocks = nn.ModuleList()
@@ -307,11 +315,14 @@ class UNet2DConditionModel(nn.Module):
         sample: torch.Tensor,
         timesteps: Union[int, torch.Tensor],
         encoder_hidden_states: torch.Tensor,
+        added_cond: Optional[Dict[str, torch.Tensor]] = None,
         capture: bool = False,
         capture_layers: Sequence[str] = (),
         remat: rm.Remat = False,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, List[torch.Tensor]]]]:
         """eps (B, h, w, 4); with `capture`, (eps, {key: [probs, ...]}),
+        `added_cond` (SDXL, required there): {"text_embeds" (B, D),
+        "time_ids" (B, 6)}.
         the keys those of `capture_layers` (every key when it is empty).
         `remat`: True checkpoints every resnet and transformer block, an
         int R those at spatial resolution >= R; a captured block returns
@@ -324,6 +335,14 @@ class UNet2DConditionModel(nn.Module):
         temb = self.time_embedding(
             timestep_embedding(t, self.cfg.block_out_channels[0]).to(dt)
         )
+        if self.add_embedding is not None:
+            if added_cond is None:
+                raise ValueError("an SDXL UNet needs added_cond")
+            t_emb = timestep_embedding(
+                added_cond["time_ids"].reshape(-1),
+                self.cfg.addition_time_embed_dim).reshape(B, -1)
+            add = torch.cat([added_cond["text_embeds"].float(), t_emb], dim=-1)
+            temb = temb + self.add_embedding(add.to(dt))
         ctx = encoder_hidden_states.to(dt)
         h = self.conv_in(sample.to(dt).permute(0, 3, 1, 2))
         captured: Dict[str, List[torch.Tensor]] = {}

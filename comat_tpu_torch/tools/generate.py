@@ -1,12 +1,15 @@
 """Text-to-image generation CLI for the PyTorch port.
 
 Port of comat_tpu/tools/generate.py: prompts -> PNG images with the
-DDPM, DDIM or DPM++ 2M sampler, on CUDA unless `--device cpu`. Weights
+DDPM, DDIM or DPM++ 2M sampler, on CUDA unless `--device cpu`, for SD1.5
+(`--model sd_1_5`) or SDXL (`--model sdxl`: both text towers, the second
+reading the pad-id-0 tokenizer's ids). Weights
 are drawn from `--seed` (loading a diffusers snapshot and training
 checkpoints is not ported yet). Example:
 
     python -m comat_tpu_torch.tools.generate --tiny --device cpu \\
         --prompt "a red cube"
+    python -m comat_tpu_torch.tools.generate --model sdxl --prompt "a red cube"
 """
 
 from __future__ import annotations
@@ -71,8 +74,15 @@ def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
     tok = (HashTokenizer(pcfg.text.vocab_size) if args.tiny
            else load_clip_tokenizer(args.tokenizer_dir))
     prompts = list(args.prompt)
-    enc = tok(prompts, max_length=pcfg.text.max_length)
-    null = tok([""] * len(prompts), max_length=pcfg.text.max_length)
+    L = pcfg.text.max_length
+    enc = tok(prompts, max_length=L)
+    null = tok([""] * len(prompts), max_length=L)
+    ids2 = null2 = None
+    if pcfg.is_sdxl:
+        tok2 = (HashTokenizer(pcfg.text.vocab_size, pad_token_id=0) if args.tiny
+                else load_clip_tokenizer(args.tokenizer_dir, pad_token_id=0))
+        ids2 = tok2(prompts, max_length=L)["input_ids"]
+        null2 = tok2([""] * len(prompts), max_length=L)["input_ids"]
     generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
 
     def sync():
@@ -86,6 +96,8 @@ def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
         num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale,
         eos_positions=enc["eos_positions"],
+        input_ids2=ids2,
+        null_ids2=null2,
         kind=args.scheduler,
         output_type="latent",
         generator=generator,

@@ -19,7 +19,6 @@ from typing import List
 _SURFACES = "ROADMAP Queue 1: trainable surfaces and the optimizer"
 _LOADERS = "ROADMAP Queue 1: snapshot loaders, tested on synthetic snapshots"
 _DDP = "ROADMAP Queue 1: torch DDP with gradient accumulation"
-_SDXL = "ROADMAP Queue 1: SDXL"
 
 
 def _check_ported(args) -> None:
@@ -35,8 +34,10 @@ def _check_ported(args) -> None:
         ("--mesh_model_axis", args.mesh_model_axis > 1,
          "ROADMAP Queue 1: opt-in extras (parallel/tp.py)"),
         ("--gradient_accumulation_steps", args.gradient_accumulation_steps > 1, _DDP),
-        ("--pretrain_model_name", args.pretrain_model_name.startswith("sdxl"), _SDXL),
-        ("--sdxl_unet_path", args.sdxl_unet_path, _SDXL),
+        # the pooled embed enters SDXL's replay as a constant
+        ("--tune_text_encoder with an SDXL model",
+         args.tune_text_encoder and args.pretrain_model_name.startswith("sdxl"),
+         _SURFACES),
         ("--blip_tokenizer_vocab", args.blip_tokenizer_vocab, _LOADERS),
         ("--caption_model_path", args.caption_model_path, _LOADERS),
     ]

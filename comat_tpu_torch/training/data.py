@@ -8,8 +8,8 @@ per-process shuffle with seed + process_index) and gan_dataset.py
 replaced here by a filesystem/npy latent store with the same jsonl
 index contract: lines of {"prompt": ..., "file_path": ...}).
 
-Batches are fixed-shape (captions padded to a static bucket), as in JAX.
-SDXL's second tokenizer is not ported (ROADMAP Queue 1: SDXL).
+Batches are fixed-shape (captions padded to a static bucket), as in JAX,
+and carry SDXL's second tokenizer's ids where it is given.
 """
 
 from __future__ import annotations
@@ -136,8 +136,11 @@ def assemble_batch(
     max_length: int = 77,
     caption_bucket: int = CAPTION_BUCKET,
     latent_store: Optional[GanLatentStore] = None,
+    clip_tokenizer2=None,
 ) -> Dict[str, np.ndarray]:
-    """Host-side tokenization -> fixed-shape device batch."""
+    """Host-side tokenization -> fixed-shape device batch. With SDXL's
+    second tokenizer (`clip_tokenizer2`: the same BPE, padding with "!",
+    id 0) also `input_ids2` and `null_ids2`."""
     B = len(prompts)
     enc = clip_tokenizer(list(prompts), max_length=max_length)
     null = clip_tokenizer([""] * B, max_length=max_length)
@@ -158,6 +161,11 @@ def assemble_batch(
         "caption_mask": pad_to(cap["attention_mask"], caption_bucket, 0),
         "caption_labels": pad_to(cap["labels"], caption_bucket, -100),
     }
+    if clip_tokenizer2 is not None:
+        batch["input_ids2"] = clip_tokenizer2(list(prompts), max_length=max_length)[
+            "input_ids"]
+        batch["null_ids2"] = clip_tokenizer2([""] * B, max_length=max_length)[
+            "input_ids"]
     if latent_store is not None:
         batch["gt_latents"] = latent_store.batch(prompts).astype(np.float32)
     return batch

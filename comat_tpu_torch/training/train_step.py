@@ -307,16 +307,28 @@ def init_disc_state(disc: Discriminator, cfg: TrainConfig, **d_opt) -> DiscState
     return DiscState(trainable, make_d_optimizer(cfg, trainable, **d_opt))
 
 
-def _make_null_ctx_for_d(pipeline: DiffusionPipeline):
-    """D's text condition, without gradient: the null prompts' encoding,
-    or with `condition` the prompts' (--condition_discriminator, G side
-    only), from the pipeline's text encoder as it stands when called."""
+def _make_null_ctx_for_d(pipeline: DiffusionPipeline, disc: Optional[Discriminator]):
+    """D's text condition, without gradient: (context, added condition or
+    None) of the null prompts, or with `condition` of the prompts
+    (--condition_discriminator, G side only), from the pipeline's text
+    encoders as they stand when called. A cross-architecture D (an SD1.5
+    D under an SDXL generator) reads CLIP-L's final states alone, the
+    vector the reference's D-side SD1.5 text encoder makes, with no added
+    condition; an SDXL D the pipeline's SDXL encoding and added condition
+    (JAX's `_make_null_ctx_for_d`)."""
 
-    def null_ctx_for_d(batch, condition: bool = False) -> torch.Tensor:
+    def null_ctx_for_d(batch, condition: bool = False):
         ids = batch["input_ids"] if condition else batch["null_ids"]
         eos = batch.get("eos_positions") if condition else None
         with torch.no_grad():
-            return pipeline.encode_prompt(ids, eos).context
+            if disc is not None and disc.gan_cfg.cross_arch:
+                eos = None if eos is None else pipeline._ids(eos)
+                return pipeline.text(pipeline._ids(ids), eos)[0], None
+            if not pipeline.cfg.is_sdxl:
+                return pipeline.encode_prompt(ids, eos).context, None
+            ids2 = batch.get("input_ids2" if condition else "null_ids2")
+            enc = pipeline.encode_prompt(ids, eos, input_ids2=ids2)
+            return enc.context, pipeline.sdxl_added_cond(enc.pooled, len(ids))
 
     return null_ctx_for_d
 
@@ -515,7 +527,8 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     loss_fn(batch, draws, clock=None) -> (loss, (metrics, latents)).
     `batch` holds input_ids, null_ids, eos_positions (optional),
     caption_ids, caption_mask and caption_labels (numpy or tensors);
-    `draws` a StepDraws. loss.backward() fills `.grad` of the trainable
+    `draws` a StepDraws; with SDXL also input_ids2 and null_ids2, the
+    second tokenizer's (optional). loss.backward() fills `.grad` of the trainable
     tensors. metrics: reward_blip, reward_total, reward_norm, step_loss
     (0-dim tensors), G_loss with `disc`, and what `extra_losses` adds.
 
@@ -534,7 +547,7 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
         raise ValueError("gradient_checkpointing runs pass 1 unfused: build the "
                          "pipeline with DiffusionPipeline(..., fuse_pass1=False)")
     t_final = int(inference_timesteps(cfg.total_step)[-1])
-    null_ctx_for_d = _make_null_ctx_for_d(pipeline)
+    null_ctx_for_d = _make_null_ctx_for_d(pipeline, disc)
 
     def caption_loss_of_image(img, batch):
         r = blip_caption_reward(blip, img, batch["caption_ids"],
@@ -563,6 +576,7 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             guidance_scale=cfg.guidance_scale,
             guidance_rescale=cfg.guidance_rescale,
             eos_positions=batch.get("eos_positions"),
+            input_ids2=batch.get("input_ids2"), null_ids2=batch.get("null_ids2"),
             train_text_encoder=cfg.train_text_encoder,
             latents0=draws.latents0, step_noise=draws.step_noise,
             capture=cfg.attrcon, capture_idx=draws.attrcon_draws, mark=mark,
@@ -592,11 +606,11 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
         }
 
         if disc is not None:
-            null_ctx = null_ctx_for_d(
+            null_ctx, null_added = null_ctx_for_d(
                 batch, condition=disc.gan_cfg.condition_discriminator)
             lat_d = result.latents.view_as(result.latents)
             hook(lat_d, "gan_bwd>")
-            g_loss = gan_g_loss(disc, lat_d, t_final, null_ctx)
+            g_loss = gan_g_loss(disc, lat_d, t_final, null_ctx, null_added)
             hook(g_loss, "gan_bwd<")
             loss = loss + cfg.gan_loss_weight * g_loss
             metrics["G_loss"] = g_loss.detach()
@@ -641,7 +655,8 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     then updates D, after the generator as JAX does: D's loss on the
     detached final latents (label 0) and `batch["gt_latents"]` (label
     1), both under the null prompts' encoding by the text encoder as the
-    generator's update left it.
+    generator's update left it (for a cross-architecture D, CLIP-L's final
+    states; for an SDXL D, with SDXL's added condition).
 
     metrics (Python floats): reward_blip, reward_total, reward_norm,
     step_loss, grad_norm (before the clip), G_loss and D_loss with the
@@ -661,7 +676,7 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     it, e.g. launch counts by segment through its probe."""
     loss_fn = make_loss_fn(pipeline, blip, cfg, extra_losses, disc)
     t_final = int(inference_timesteps(cfg.total_step)[-1])
-    null_ctx_for_d = _make_null_ctx_for_d(pipeline)
+    null_ctx_for_d = _make_null_ctx_for_d(pipeline, disc)
 
     def train_step(state: TrainState, batch, draws: Optional[StepDraws] = None,
                    generator: Optional[torch.Generator] = None,
@@ -678,12 +693,12 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
         grad_norm = state.optimizer.step()
         clock.mark("optimizer")
         if disc is not None and d_optimizer is not None:
-            null_ctx = null_ctx_for_d(batch)
+            null_ctx, null_added = null_ctx_for_d(batch)
             gt = batch["gt_latents"]
             if not isinstance(gt, torch.Tensor):
                 gt = torch.from_numpy(np.asarray(gt))
             d_optimizer.zero_grad()
-            d_loss = gan_d_loss(disc, gen_latents, gt, t_final, null_ctx)
+            d_loss = gan_d_loss(disc, gen_latents, gt, t_final, null_ctx, null_added)
             clock.mark("d_forward")
             d_loss.backward()
             clock.mark("d_backward")
@@ -728,6 +743,7 @@ def make_presample(pipeline: DiffusionPipeline, cfg: TrainConfig):
             num_inference_steps=cfg.total_step, guidance_scale=cfg.guidance_scale,
             guidance_rescale=cfg.guidance_rescale,
             eos_positions=batch.get("eos_positions"),
+            input_ids2=batch.get("input_ids2"), null_ids2=batch.get("null_ids2"),
             latents0=draws.latents0, step_noise=draws.step_noise,
             mark=lambda name: mark("presample_" + name),
         )

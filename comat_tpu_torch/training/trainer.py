@@ -13,11 +13,20 @@ before exiting on SIGTERM/SIGINT. With an image-dependent segmenter
 each step is split as in JAX: the no-grad presample, the segmentation of
 its images on the device, then the step replaying the presample's tables.
 
+SD1.5 and SDXL (`--pretrain_model_name sdxl*`: both text towers, the
+second tokenizer padding with id 0, the added condition). Under an SDXL
+generator `--gan_model_arch gansd_1_5` builds the published recipe's
+cross-architecture D, an SD1.5 UNet of its own (seeded) conditioned on
+CLIP-L's final states; `--gan_model_arch sdxl` an SDXL D sharing the
+generator's base, as with SD1.5.
+
 Weights are drawn from --seed; loading a diffusers snapshot is not ported
 (ROADMAP Queue 1: snapshot loaders), so an existing --pretrain_model
 directory raises, and a missing one warns and starts from random weights,
-as JAX does. Real runs refuse the smoke fallbacks (hash tokenizers,
-random caption weights, zero GAN latents) unless --allow_smoke.
+as JAX does. `--sdxl_unet_path` swaps in a diffusers-named UNet
+.safetensors over those weights. Real runs refuse the smoke fallbacks
+(hash tokenizers, random caption weights, zero GAN latents) unless
+--allow_smoke.
 """
 
 from __future__ import annotations
@@ -31,9 +40,10 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from comat_tpu_torch.config import BLIPConfig
+from comat_tpu_torch.config import BLIPConfig, UNetConfig
 from comat_tpu_torch.losses.gan import Discriminator, GanConfig
 from comat_tpu_torch.models.blip import make_blip
+from comat_tpu_torch.models.lora import is_lora_path
 from comat_tpu_torch.models.pipeline import (
     DiffusionPipeline,
     make_pipeline_config,
@@ -58,6 +68,7 @@ from comat_tpu_torch.training.train_step import (
     make_train_step,
     sample_draws,
 )
+from comat_tpu_torch.weights import unet_from_diffusers
 
 _LOADERS = "ROADMAP Queue 1: snapshot loaders, tested on synthetic snapshots"
 
@@ -190,6 +201,15 @@ class Trainer:
             self._smoke_gate("no --blip_tokenizer_vocab: the caption reward "
                              "would tokenize with a HashTokenizer")
             self.caption_tok = HashTokenizer(self.blip_cfg.vocab_size)
+        # SDXL's second tokenizer (reference AttrConcenTrainableSDXLPipeline.py:
+        # 21-22): CLIP-L's BPE, padding with "!" (id 0), so that the bigG
+        # tower sees its own padded ids
+        self.clip_tok2 = None
+        if self.pcfg.is_sdxl:
+            self.clip_tok2 = (
+                HashTokenizer(self.pcfg.text.vocab_size, pad_token_id=0) if tiny
+                else load_clip_tokenizer(args.tokenizer2_dir or args.tokenizer_dir,
+                                         pad_token_id=0))
         weights = resolve_snapshot(args.pretrain_model, args.cache_dir)
         if weights and os.path.isdir(weights):
             raise NotImplementedError(
@@ -211,6 +231,8 @@ class Trainer:
         seed = args.seed if args.seed is not None else 0
         self.pipeline = DiffusionPipeline(self.pcfg, self.device, seed=seed,
                                           fuse_pass1=not args.gradient_checkpointing)
+        if args.sdxl_unet_path:
+            self._load_unet(args.sdxl_unet_path)
         self.blip = make_blip(self.blip_cfg, self.device, seed=seed + 1)
         self.state = init_train_state(self.pipeline, self.tcfg, tune_vae=args.tune_vae,
                                       tune_text_encoder=args.tune_text_encoder,
@@ -220,16 +242,26 @@ class Trainer:
         if args.gan_loss:
             # the reference strips a 'gan' prefix (gan_sd_model.py:9-13)
             d_arch = (args.gan_model_arch or "sd_1_5").replace("gan", "")
-            if d_arch.startswith("sdxl"):
-                raise NotImplementedError(
-                    f"--gan_model_arch {args.gan_model_arch}: not ported yet, "
-                    "ROADMAP Queue 1: SDXL")
-            # D's frozen base is the generator's own UNet (gan_sd_model.py:8-13)
-            self.disc = Discriminator(
-                self.pcfg.unet, GanConfig(lora_rank=args.lora_rank,
-                                          lastlayer_cls=args.gan_unet_lastlayer_cls,
-                                          condition_discriminator=args.condition_discriminator),
-                self.device, base_unet=self.pipeline.unet, seed=seed + 2)
+            cross_arch = d_arch.startswith("sdxl") != self.pcfg.is_sdxl
+            if cross_arch and not d_arch.startswith("sd_1_5"):
+                raise ValueError("--gan_model_arch sdxl with an SD1.5 generator is not "
+                                 "supported (the reference never runs it either)")
+            gan_cfg = GanConfig(lora_rank=args.lora_rank,
+                                lastlayer_cls=args.gan_unet_lastlayer_cls,
+                                condition_discriminator=args.condition_discriminator,
+                                cross_arch=cross_arch)
+            if cross_arch:
+                # the published SDXL recipe's SD1.5-architecture D over SDXL
+                # latents (64x64x4 in both): a tower of its own, seeded (the
+                # reference loads the SD1.5 snapshot for it), conditioned on
+                # CLIP-L's 768-wide states
+                d_unet = (UNetConfig.tiny(cross_attention_dim=self.pcfg.text.hidden_size)
+                          if tiny else UNetConfig.sd15())
+                self.disc = Discriminator(d_unet, gan_cfg, self.device, seed=seed + 2)
+            else:
+                # D's frozen base is the generator's own UNet (gan_sd_model.py:8-13)
+                self.disc = Discriminator(self.pcfg.unet, gan_cfg, self.device,
+                                          base_unet=self.pipeline.unet, seed=seed + 2)
             self.d_state = init_disc_state(
                 self.disc, self.tcfg, lr=args.learning_rate_D, b1=args.adam_beta1_D,
                 b2=args.adam_beta2_D, max_grad_norm=args.max_grad_norm_D)
@@ -311,6 +343,23 @@ class Trainer:
         except ValueError:
             pass    # not the main thread
 
+    def _load_unet(self, path: str) -> None:
+        """--sdxl_unet_path: a separately fine-tuned UNet swapped in over the
+        generator's (reference training_utils/pipeline.py:28): a .safetensors
+        file under diffusers' names, read with the port's own reader. The
+        generator's tensors it does not hold (the LoRA factors aside) and its
+        tensors the UNet does not hold are logged, not raised, as JAX logs
+        its unmapped names."""
+        missing, unused = self.pipeline.unet.load_state_dict(
+            unet_from_diffusers(ckpt_lib.load_safetensors(path)), strict=False)
+        missing = [n for n in missing if not is_lora_path(n)]
+        if missing or unused:
+            self.logger.warning(
+                "sdxl_unet_path: %d unmapped params (first: %s), %d unused tensors "
+                "(first: %s)", len(missing), missing[:3], len(unused), unused[:3])
+        else:
+            self.logger.info("loaded fine-tuned UNet from %s", path)
+
     def _build_gsam_segmenter(self, args, seed: int):
         """The reference's default segmenter (--seg_model gsam): FastSAM-x
         proposals and GroundingDINO-T (swint_ogc) grounding at an 800-pixel
@@ -364,7 +413,8 @@ class Trainer:
     def _batch(self, prompts):
         batch = assemble_batch(prompts, self.clip_tok, self.caption_tok,
                                max_length=self.pcfg.text.max_length,
-                               latent_store=self.latent_store)
+                               latent_store=self.latent_store,
+                               clip_tokenizer2=self.clip_tok2)
         if self.seg_holder is not None:
             from comat_tpu_torch.training.attrcon import attrcon_batch_fields
 
@@ -533,6 +583,10 @@ class Trainer:
         L = self.pcfg.text.max_length
         enc = self.clip_tok(prompts, max_length=L)
         null = self.clip_tok([""], max_length=L)
+        ids2 = null2 = None
+        if self.clip_tok2 is not None:
+            ids2 = self.clip_tok2(prompts, max_length=L)["input_ids"]
+            null2 = self.clip_tok2([""], max_length=L)["input_ids"]
         kind = "dpmpp" if args.scheduler == "DPM++" else "ddpm"
         seed = args.seed if args.seed is not None else 0
         unet = self.pipeline.fused_unet()
@@ -545,8 +599,9 @@ class Trainer:
                     enc["input_ids"][i:i + 1], null["input_ids"],
                     num_inference_steps=n_steps, guidance_scale=args.cfg_scale,
                     guidance_rescale=args.cfg_rescale,
-                    eos_positions=enc["eos_positions"][i:i + 1], kind=kind,
-                    generator=g, unet=unet)
+                    eos_positions=enc["eos_positions"][i:i + 1],
+                    input_ids2=None if ids2 is None else ids2[i:i + 1],
+                    null_ids2=null2, kind=kind, generator=g, unet=unet)
                 rows.append(img[0].float().cpu().numpy())
             self.metrics.log_images(f"validation_{r}", np.stack(rows), self.global_step)
         dt = time.perf_counter() - t0

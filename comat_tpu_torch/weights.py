@@ -65,9 +65,9 @@ def _unet_rule(path: Tuple[str, ...]) -> Optional[Rule]:
     if top == "conv_norm_out":
         name, fn = _leaf("norm", leaf)
         return f"conv_norm_out.{name}", fn
-    if top == "time_embedding":
+    if top in ("time_embedding", "add_embedding"):    # add_embedding: SDXL
         name, fn = _leaf("dense", leaf)
-        return f"time_embedding.{path[1]}.{name}", fn
+        return f"{top}.{path[1]}.{name}", fn
 
     m = re.fullmatch(r"(down|up)_(\d+)_resnet_(\d+)", top)
     mid = re.fullmatch(r"mid_resnet_(\d+)", top)
@@ -123,6 +123,8 @@ def _clip_rule(path: Tuple[str, ...]) -> Optional[Rule]:
         return pre + "embeddings.token_embedding.weight", _same
     if top == "position_embedding":
         return pre + "embeddings.position_embedding.weight", _same
+    if top == "text_projection":       # SDXL's second tower, (hidden, proj)
+        return "text_projection.weight", _dense
     if top == "final_norm":
         name, fn = _leaf("norm", leaf)
         return pre + f"final_layer_norm.{name}", fn
@@ -497,10 +499,12 @@ def _disc_convert(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{"unet", "text", "vae", "blip", "disc", "gdino", "fastsam"} JAX
+    """{"unet", "text", "text2", "vae", "blip", "disc", "gdino", "fastsam"} JAX
     parameter trees, as numpy arrays -> state dicts of the port's modules
     under the same keys (CPU fp32 tensors; the modules cast them to their
-    own dtypes on load). "disc" is a discriminator's tree
+    own dtypes on load). "text2" is SDXL's second tower, its
+    `text_projection` (hidden, proj) transposed to transformers' (proj,
+    hidden). "disc" is a discriminator's tree
     (`losses.gan.Discriminator`); "vae" the whole AutoencoderKL, encoder
     and decoder; "gdino" a GroundingDetector's and "fastsam" a YoloV8Seg's
     variables ({"params", "batch_stats"}), whose state dicts carry the
@@ -508,8 +512,8 @@ def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     are inverted (dense and conv transposes, q/k/v joined into packed
     in_proj thirds, the patch-merge block order, the ConvTranspose tap
     flip). Keys missing from `tree` are missing from the result."""
-    rules = {"unet": _unet_rule, "text": _clip_rule, "vae": _vae_rule,
-             "blip": _blip_rule, "gdino": _gdino_rule}
+    rules = {"unet": _unet_rule, "text": _clip_rule, "text2": _clip_rule,
+             "vae": _vae_rule, "blip": _blip_rule, "gdino": _gdino_rule}
     out = {k: _convert(tree[k], rule) for k, rule in rules.items() if k in tree}
     if "fastsam" in tree:
         fs = tree["fastsam"]
@@ -517,6 +521,28 @@ def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
         out["fastsam"].update(_convert(fs.get("batch_stats", {}), _fastsam_rule))
     if "disc" in tree:
         out["disc"] = _disc_convert(tree["disc"])
+    return out
+
+
+_ATTN_PROJ = re.compile(r"(.+\.attn[12]\.(?:to_q|to_k|to_v|to_out\.0))\.(weight|bias)")
+
+
+def unet_from_diffusers(tensors: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A diffusers UNet2DConditionModel's tensors (its safetensors file)
+    under the port UNet's names: an attention projection's weight and bias
+    move under `.base` (models/lora.py), and a transformer's proj_in /
+    proj_out stored as a 1x1 conv (SD1.5; SDXL's are linear) loses its
+    two unit dims (the port's copy of `hf_import._unet_hf_name`'s
+    `proj_f`). Every other name is the port's own."""
+    out = {}
+    for name, value in tensors.items():
+        value = np.asarray(value)
+        m = _ATTN_PROJ.fullmatch(name)
+        if m:
+            name = f"{m.group(1)}.base.{m.group(2)}"
+        elif re.search(r"\.attentions\.\d+\.proj_(in|out)\.weight$", name) and value.ndim == 4:
+            value = value[:, :, 0, 0]
+        out[name] = torch.tensor(value)
     return out
 
 

@@ -80,11 +80,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         from comat_tpu_torch.train import main as train_main
         from comat_tpu_torch.segmentation.grounded_sam import GroundedSAMSegmenter
         cfg = make_pipeline_config("sd_1_5", lora_rank=0, resolution=64, tiny=True)
+        xl = make_pipeline_config("sdxl", lora_rank=0, resolution=64, tiny=True)
         for call in (lambda: DiffusionPipeline(cfg), lambda: GroundedSAMSegmenter(),
                      lambda: main(["--tiny", "--prompt", "a cat"]),
                      lambda: make_blip(BLIPConfig.tiny()),
                      lambda: train_main(["--tiny_models", "--training_prompts",
                                          "collected_data/abc5k.txt",
+                                         "--output_dir", "build/no_card"]),
+                     lambda: DiffusionPipeline(xl),
+                     lambda: main(["--tiny", "--model", "sdxl", "--prompt", "a cat"]),
+                     lambda: train_main(["--tiny_models", "--training_prompts",
+                                         "collected_data/abc5k.txt",
+                                         "--pretrain_model_name", "sdxl_attrcon_unet",
                                          "--output_dir", "build/no_card"])):
             try:
                 call()
@@ -94,4 +101,4 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
                 print("RAN")
     """)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count("RAISED") == 5, res.stdout
+    assert res.stdout.count("RAISED") == 8, res.stdout

@@ -76,7 +76,8 @@ def test_parser_matches_jax_on_sd15_flags(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--use_8bit_adam"], ["--full_finetuning"], ["--train_text_encoder_lora"],
-    ["--gradient_accumulation_steps", "2"], ["--pretrain_model_name", "sdxl"],
+    ["--gradient_accumulation_steps", "2"],
+    ["--pretrain_model_name", "sdxl", "--tune_text_encoder"],
     ["--blip_tokenizer_vocab", "vocab.txt"], ["--caption_model_path", "blip"]])
 def test_unported_flags_raise_naming_their_item(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "):

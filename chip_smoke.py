@@ -34,9 +34,10 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    1e-3 relative (a leaf whose CPU gradient is below 1e-6 of the largest,
    zero in exact arithmetic, within 1e-5 of the largest gradient instead);
 5. generation main path: `comat_tpu_torch.tools.generate.main` at SD1.5
-   full width, 512^2, bf16, 2 prompts, 50 DDPM steps, CFG 7.5, seeded
-   weights, the hash tokenizer at vocab 49408; finite (2, 512, 512, 3)
-   images and the expected kernel launch counts;
+   full width, 512^2, bf16, 2 prompts, 50 DDPM steps, CFG 7.5, weights
+   seeded with the launcher's seed (42), the hash tokenizer at vocab
+   49408; finite (2, 512, 512, 3) images and the expected kernel launch
+   counts;
 6. train main path: `make_train_step` on the published recipe
    (scripts/sd15.sh): SD1.5 and BLIP-large at full width, bf16 towers and
    fp32 LoRA 128, 512^2, 4 prompts (CFG batch 8), total_step 50, K 5, lr
@@ -78,7 +79,8 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    Seconds per step, its split (s_presample, s_segment and its host
    part among them), peak memory, the seconds of each validation and the
    launches by role (the presample's decode a role of its own), each
-   beside phase 8's;
+   beside phase 8's; its step 1's trained tensors and its seeded towers
+   are kept for phase 13;
 10. Grounded-SAM parity: GroundingDINO-T (swint_ogc, 800^2 input) and
    FastSAM-x at full width with seeded weights, fp32, one 512^2 image and
    two nouns, on the card and on the CPU: boxes, token logits, FastSAM's
@@ -105,14 +107,33 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    a checkpoint at step 0 and 3, against a GanLatentStore the SDXL VAE
    encoder made from 6 seeded images; seconds per step and its split,
    peak memory, the launches by role against those the config predicts.
+13. snapshots: synthetic snapshots in the HF hub cache's layout, written
+   under a temporary folder in build/chip_smoke/ and deleted at the end:
+   SD1.5 (phase 9's seeded towers, which phase 5 generated with, in fp32
+   as the SD1.5 repository ships them, the proj_in/proj_out 1x1 convs, the
+   VAE's mid-block attention under older diffusers' names, the text
+   encoder's position_ids) as runwayml/stable-diffusion-v1-5 and
+   BLIP-large (phase 9's seeded captioner, the tied LM head dropped) as
+   Salesforce/blip-image-captioning-large. The generator
+   (`tools/generate.main --pretrain-model` with --cache-dir) on phase 5's
+   prompts, seed and draws makes phase 5's image bit for bit, with its
+   launches; the trainer on the launcher's flags with --cache_dir (its
+   default ids resolve there) runs 2 steps: every tower and the captioner
+   equal phase 9's seeded ones, no tensor missing or unused, no smoke
+   fallback for weights, step 1's loss and every G and D trained tensor
+   after it equal phase 9's step 1 bit for bit, its launches by role
+   phase 9's a step. Then SDXL's fp16 variant files (seeded) load into a
+   fresh SDXL pipeline: every tensor the fp16 value rounded once, none
+   missing. The seconds and GB/s of each load, file read and copy to the
+   card apart, and the host RSS's peak during the SDXL load.
 Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
 in the driven paths: generation, the reduced recipe's train step, the
 same step with the VAE trained, phase 4's fp32 card run of the train step
 with the VAE trained (dw), the full recipe's step, the latent store's
-encoding, the trainer CLI's run, and SDXL's latent store and trainer run.
-Weights are random (the real ones are not in the repository); depth is
-not cut.
+encoding, the trainer CLI's run, SDXL's latent store and trainer run, and
+the generation and trainer run from the SD1.5 snapshot. Weights are
+random (the real ones are not in the repository); depth is not cut.
 """
 
 from __future__ import annotations
@@ -122,9 +143,13 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -209,6 +234,15 @@ SDXL_CLI_LAUNCHES = {
     "d_backward": {"dq": 30, "dkv": 30},
 }
 SDXL_PARITY_TOL = 1e-3   # relative to each output's max abs
+# comat_tpu_torch/scripts/sd15.sh's --seed: phase 5 generates with it, so
+# that the towers phase 9's trainer seeds are phase 5's weights too
+TRAINER_SEED = 42
+# phase 13: synthetic snapshots in the HF hub cache's layout, under the
+# ids the launchers and the trainer name
+SD15_ID = "runwayml/stable-diffusion-v1-5"
+SDXL_ID = "stabilityai/stable-diffusion-xl-base-1.0"
+CAPTION_ID = "Salesforce/blip-image-captioning-large"
+SNAPSHOT_STEPS = 2
 # one validation image: 50 CFG UNet calls (15 A each) and its decode
 VALIDATION_LAUNCHES = {"flash_fwd": 751, "conv_fwd": 21}
 # encoding 4 images at 512^2: the 12 gated encoder convs and the
@@ -874,13 +908,15 @@ def phase_train_parity(torch, fa, cv, kernels):
 
 
 def phase_main(torch, kernels):
+    """Returns (launches by kernel and shape, the images on the host, the
+    generator's argv)."""
     from comat_tpu_torch.tools.generate import main as generate_main
 
     out_dir = os.path.join(REPO, "build", "chip_smoke")   # PNGs; build/ is ignored
     argv = [
         "--model", "sd_1_5", "--resolution", "512",
         "--num-inference-steps", "50", "--guidance-scale", "7.5",
-        "--scheduler", "ddpm", "--seed", str(SEED), "--device", "cuda",
+        "--scheduler", "ddpm", "--seed", str(TRAINER_SEED), "--device", "cuda",
         "--out-dir", out_dir,
         "--prompt", "a red cube on top of a blue sphere",
         "a photo of two cats and a green umbrella",
@@ -902,7 +938,7 @@ def phase_main(torch, kernels):
             f"main path launched {counts}, expected "
             f"{[MAIN_FLASH_LAUNCHES, MAIN_CONV_LAUNCHES]}"
         )
-    return by_shape
+    return by_shape, images.cpu(), argv
 
 
 def run_train_steps(torch, fa, cv, kernels, step, state, batch, gen, n_steps, what):
@@ -1176,12 +1212,31 @@ def _cli_roles(trainer):
     return roles
 
 
+def record_first_step(trainer) -> dict:
+    """Wrap the trainer's step so that its first call leaves the step loss
+    and every G and D trainable tensor after it (on the host) in the dict
+    returned."""
+    step1, inner = {}, trainer.train_step
+
+    def step(state, batch, **kw):
+        state, metrics = inner(state, batch, **kw)
+        if not step1:
+            step1["loss"] = metrics["step_loss"]
+            step1["g"] = {n: p.detach().cpu() for n, p in state.trainable.items()}
+            step1["d"] = {n: p.detach().cpu() for n, p in trainer.d_state.trainable.items()}
+        return state, metrics
+
+    trainer.train_step = step
+    return step1
+
+
 def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     """The trainer CLI with scripts/sd15.sh's flags at 512^2, then a resume
     from its checkpoint. Returns (launches by kernel and shape of the
     trainer's runs, of the latent store's encoding, the first run's
-    medians, its peak memory GiB)."""
-    from comat_tpu_torch.train import main as train_main
+    medians, its peak memory GiB, and for phase 13: its argv, the latent
+    store's index, step 1's loss and trained tensors, the seeded towers
+    and captioner on the host)."""
     from comat_tpu_torch.training import train_step as ts
     from comat_tpu_torch.training.arguments import launcher_argv, parse_args
     from comat_tpu_torch.training.trainer import Trainer
@@ -1207,7 +1262,10 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     torch.cuda.reset_peak_memory_stats()
     reset(kernels)
     t0 = time.perf_counter()
-    trainer = train_main(argv_first, probe=probe)
+    trainer = Trainer(parse_args(argv_first), probe=probe)
+    step1 = record_first_step(trainer)
+    trainer.train()
+    trainer.metrics.close()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1263,6 +1321,13 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
             os.path.join(last, "pytorch_lora_weights.safetensors")) or len(images) != n_val:
         raise AssertionError(f"trainer output: {ckpts}, images {images}")
     cli_shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    # the seeded towers (never trained: the run trains LoRA factors), for
+    # phase 13's snapshots
+    seeded = {tower: {n: v.detach().cpu().clone() for n, v in module.state_dict().items()
+                      if "lora_" not in n}
+              for tower, module in (("unet", trainer.pipeline.unet),
+                                    ("text", trainer.pipeline.text),
+                                    ("vae", trainer.pipeline.vae), ("blip", trainer.blip))}
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -1332,7 +1397,8 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     del resumed, saved, a, b
     gc.collect()
     torch.cuda.empty_cache()
-    return cli_shapes, encode_shapes, median, peak
+    return cli_shapes, encode_shapes, median, peak, {
+        "argv": argv, "index": index, "step1": step1, "seeded": seeded}
 
 
 GSAM_TOL = 1e-3          # relative to each output's max abs
@@ -1663,6 +1729,302 @@ def phase_sdxl_trainer(torch, fa, cv, kernels, cli_median, cli_peak):
     return shapes, encode_shapes, median, peak
 
 
+_ST_DTYPES = {"torch.float32": "F32", "torch.float16": "F16", "torch.int64": "I64"}
+
+
+def write_safetensors(torch, path, tensors, dtype=None) -> int:
+    """`tensors` (name -> tensor, on any device) as a .safetensors file,
+    each floating tensor cast to `dtype` where given, one tensor at a time
+    on its way to the host. Returns the bytes written."""
+    def out_dtype(t):
+        return dtype if dtype is not None and t.is_floating_point() else t.dtype
+
+    names = sorted(tensors)
+    header, offset = {}, 0
+    for n in names:
+        t = tensors[n]
+        size = t.numel() * torch.empty((), dtype=out_dtype(t)).element_size()
+        header[n] = {"dtype": _ST_DTYPES[str(out_dtype(t))], "shape": list(t.shape),
+                     "data_offsets": [offset, offset + size]}
+        offset += size
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for n in names:
+            t = tensors[n].detach().to("cpu", out_dtype(tensors[n])).contiguous()
+            f.write(t.numpy().tobytes())
+    return 8 + len(text) + offset
+
+
+def hub_snapshot(cache, repo_id, rev="0123abc"):
+    """cache/models--org--name/snapshots/<rev>, refs/main naming it."""
+    base = os.path.join(cache, "models--" + repo_id.replace("/", "--"))
+    os.makedirs(os.path.join(base, "refs"))
+    with open(os.path.join(base, "refs", "main"), "w") as f:
+        f.write(rev)
+    return os.path.join(base, "snapshots", rev)
+
+
+def diffusers_unet(state, conv_proj):
+    """The port UNet's tensors under diffusers' names (the LoRA factors
+    left out); `conv_proj`: the transformers' proj_in / proj_out as 1x1
+    convs, as SD1.5's file holds them."""
+    out = {}
+    for n, v in state.items():
+        if "lora_" in n:
+            continue
+        n = n.replace(".base.", ".")
+        if conv_proj and re.search(r"\.attentions\.\d+\.proj_(in|out)\.weight$", n):
+            v = v[:, :, None, None]
+        out[n] = v
+    return out
+
+
+def old_vae_names(state):
+    """The VAE's mid-block attention under the names older diffusers saved
+    (the SD1.5 repository's VAE file holds them)."""
+    old = {"to_q": "query", "to_k": "key", "to_v": "value", "to_out.0": "proj_attn"}
+    out = {}
+    for n, v in state.items():
+        m = re.fullmatch(r"(.+\.mid_block\.attentions\.0)\.(to_q|to_k|to_v|to_out\.0)\.(.+)", n)
+        out[f"{m.group(1)}.{old[m.group(2)]}.{m.group(3)}" if m else n] = v
+    return out
+
+
+class RssPeak:
+    """The process's resident set, sampled every 2 ms on a thread while
+    the block runs: `base` before it, `peak` the largest sample."""
+
+    def __enter__(self):
+        self.base = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def _load_line(what, r):
+    secs = r.read_s + r.copy_s
+    return (f"{what}: {r.nbytes / 1e9:.3f} GB, read {r.read_s:.3f} s "
+            f"({r.nbytes / 1e9 / max(r.read_s, 1e-9):.2f} GB/s), copy to the card "
+            f"{r.copy_s:.3f} s ({r.nbytes / 1e9 / max(r.copy_s, 1e-9):.2f} GB/s), "
+            f"{secs:.3f} s in all")
+
+
+def phase_snapshots(torch, fa, cv, kernels, gen, cli):
+    """Synthetic snapshots in the HF hub cache layout under a temporary
+    folder (deleted at the end, pass or fail): SD1.5 (phase 9's seeded
+    towers, fp32, the VAE's attention under older diffusers' names) and
+    BLIP-large (phase 9's seeded captioner, the tied LM head dropped), then
+    SDXL (seeded, the base repository's fp16 variant files). (a) the
+    generator from the SD1.5 snapshot, phase 5's prompts, seed and draws:
+    phase 5's image, bit for bit, and its launches; (c) the trainer on
+    sd15.sh's flags, its default ids resolved in the cache, for
+    SNAPSHOT_STEPS steps: (d) every tower and the captioner equal the
+    seeded ones, nothing missing or unused, no smoke fallback for weights;
+    (e) step 1's loss and every G and D trained tensor after it equal phase
+    9's step 1, bit for bit; (f) its launches by role equal phase 9's a
+    step; then the SDXL snapshot into a fresh SDXL pipeline: every tensor
+    the fp16 value widened and rounded once, no tensor missing, the peak
+    host RSS of the load. Returns the launches by kernel and shape of the
+    generation and of the trainer's run."""
+    from comat_tpu_torch.models.hf_import import load_sd_state
+    from comat_tpu_torch.models.pipeline import DiffusionPipeline, make_pipeline_config
+    from comat_tpu_torch.tools.generate import main as generate_main
+    from comat_tpu_torch.training.arguments import launcher_argv, parse_args
+    from comat_tpu_torch.training.trainer import Trainer
+
+    _, gen_images, gen_argv = gen
+    t_phase = time.perf_counter()
+    parent = os.path.join(REPO, "build", "chip_smoke")     # build/ is ignored
+    os.makedirs(parent, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="snapshots-", dir=parent)
+    try:
+        free = shutil.disk_usage(work).free / 1e9
+        cache = os.path.join(work, "hub")
+        seeded = cli["seeded"]
+        t0 = time.perf_counter()
+        sd = hub_snapshot(cache, SD15_ID)
+        nbytes = write_safetensors(
+            torch, os.path.join(sd, "unet", "diffusion_pytorch_model.safetensors"),
+            diffusers_unet(seeded["unet"], conv_proj=True), torch.float32)
+        nbytes += write_safetensors(
+            torch, os.path.join(sd, "vae", "diffusion_pytorch_model.safetensors"),
+            old_vae_names(seeded["vae"]), torch.float32)
+        nbytes += write_safetensors(
+            torch, os.path.join(sd, "text_encoder", "model.safetensors"),
+            {**seeded["text"], "text_model.embeddings.position_ids": torch.arange(77)[None]},
+            torch.float32)
+        blip = hub_snapshot(cache, CAPTION_ID)
+        head = "text_decoder.cls.predictions.decoder.weight"
+        blip_bytes = write_safetensors(
+            torch, os.path.join(blip, "model.safetensors"),
+            {**{n: v for n, v in seeded["blip"].items() if n != head},
+             "text_decoder.bert.embeddings.position_ids": torch.arange(512)[None]},
+            torch.float32)
+        log(f"  wrote SD1.5 ({nbytes / 1e9:.3f} GB, fp32: UNet "
+            f"{sum(v.numel() for v in seeded['unet'].values()) / 1e6:.1f} M, CLIP-L "
+            f"{sum(v.numel() for v in seeded['text'].values()) / 1e6:.1f} M, VAE "
+            f"{sum(v.numel() for v in seeded['vae'].values()) / 1e6:.1f} M parameters) and "
+            f"BLIP-large ({blip_bytes / 1e9:.3f} GB) in {time.perf_counter() - t0:.1f} s "
+            f"under {work} ({free:.0f} GB free before)")
+
+        # (a) the generator from the snapshot
+        reset(kernels)
+        images, timings = generate_main(gen_argv + ["--pretrain-model", SD15_ID,
+                                                    "--cache-dir", cache])
+        torch.cuda.synchronize()
+        counts = [kernels[0].launches, kernels[3].launches]
+        snap_gen_shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+        same = torch.equal(images.cpu(), gen_images)
+        log(f"  generation from the snapshot: {timings['sample_s'] / 50:.4f} s/step; image "
+            f"equal to phase 5's: {same}; launches flash {counts[0]}, conv {counts[1]}")
+        if not same:
+            diff = float((images.cpu().float() - gen_images.float()).abs().max())
+            raise AssertionError(f"the image from the snapshot differs from phase 5's "
+                                 f"(max |diff| {diff:.3e})")
+        if counts != [MAIN_FLASH_LAUNCHES, MAIN_CONV_LAUNCHES]:
+            raise AssertionError(f"generation from the snapshot launched {counts}")
+
+        # (c) the trainer, its default ids resolved in the cache
+        argv = launcher_argv(os.path.join(REPO, SD15_LAUNCHER))
+        i = argv.index("--training_prompts") + 1
+        argv[i] = os.path.join(REPO, argv[i])
+        out = os.path.join(work, "output")
+        argv += ["--gan_gt_path", cli["index"], "--cache_dir", cache, "--max_train_steps",
+                 str(SNAPSHOT_STEPS), "--num_validation_images", "0", "--output_dir", out]
+        log("  argv: " + " ".join(argv))
+        probe = lambda: counts_by_role(fa, cv)  # noqa: E731
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset(kernels)
+        t0 = time.perf_counter()
+        trainer = Trainer(parse_args(argv), probe=probe)
+        t_build = time.perf_counter() - t0
+        step1 = record_first_step(trainer)
+        trainer.train()
+        trainer.metrics.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap_cli_shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+        log(f"  trainer: snapshot {trainer.snapshot}, caption model {trainer.caption_dir}; "
+            f"built in {t_build:.1f} s, {SNAPSHOT_STEPS} steps and 2 checkpoints, "
+            f"{wall:.1f} s in all")
+        log("  " + gpu_name_and_power())
+        for what, r in trainer.load_reports.items():
+            log("    load " + _load_line(what, r))
+        reports = {w: (len(r.missing), len(r.unused)) for w, r in trainer.load_reports.items()}
+        weight_fallbacks = [why for kind, why in trainer.smoke_fallbacks if kind == "weights"]
+        log(f"  (missing, unused) by load: {reports}; smoke fallbacks taken: "
+            f"{[kind for kind, _ in trainer.smoke_fallbacks]}")
+        if sorted(reports) != ["caption_model", "text", "unet", "vae"] or any(
+                m or u for m, u in reports.values()) or weight_fallbacks:
+            raise AssertionError(f"snapshot loads: {reports}, weight fallbacks "
+                                 f"{weight_fallbacks}")
+        # (d) every tower as phase 9 seeded it
+        bad = []
+        for tower, module in (("unet", trainer.pipeline.unet), ("text", trainer.pipeline.text),
+                              ("vae", trainer.pipeline.vae), ("blip", trainer.blip)):
+            got = module.state_dict()
+            bad += [f"{tower}.{n}" for n, v in seeded[tower].items()
+                    if not torch.equal(got[n].cpu(), v)]
+        n_seeded = sum(len(v) for v in seeded.values())
+        log(f"  {n_seeded} tower and captioner tensors against phase 9's seeded ones: "
+            f"{len(bad)} differ {bad[:3]}")
+        if bad:
+            raise AssertionError(f"{len(bad)} loaded tensors differ from the seeded: {bad[:5]}")
+        # (e) step 1 as phase 9's
+        ref = cli["step1"]
+        differ = [f"g.{n}" for n, v in step1["g"].items() if not torch.equal(v, ref["g"][n])]
+        differ += [f"d.{n}" for n, v in step1["d"].items() if not torch.equal(v, ref["d"][n])]
+        log(f"  step 1: loss {step1['loss']!r} (phase 9 {ref['loss']!r}); "
+            f"{len(step1['g'])} G and {len(step1['d'])} D trained tensors, "
+            f"{len(differ)} differ from phase 9's {differ[:3]}")
+        if step1["loss"] != ref["loss"] or differ or set(step1["g"]) != set(ref["g"]):
+            raise AssertionError("step 1 from the snapshot differs from phase 9's")
+        # (f) launches by role, as phase 9's a step
+        roles = _cli_roles(trainer)
+        want_roles = {role: {k: n * SNAPSHOT_STEPS for k, n in c.items()}
+                      for role, c in CLI_LAUNCHES.items()}
+        log(f"  launches by role, {SNAPSHOT_STEPS} steps: {roles}")
+        if roles != want_roles:
+            raise AssertionError(f"trainer from the snapshot launched {roles}, expected "
+                                 f"{want_roles}")
+        del trainer, step1
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(sd)
+        shutil.rmtree(blip)
+
+        # SDXL: the base repository's fp16 variant files
+        cfg = make_pipeline_config("sdxl", lora_rank=0)
+        src = DiffusionPipeline(cfg, "cuda", seed=SEED)
+        xl = hub_snapshot(cache, SDXL_ID)
+        t0 = time.perf_counter()
+        files = {"unet": ("unet", "diffusion_pytorch_model",
+                          diffusers_unet(src.unet.state_dict(), conv_proj=False)),
+                 "vae": ("vae", "diffusion_pytorch_model", src.vae.state_dict()),
+                 "text": ("text_encoder", "model", src.text.state_dict()),
+                 "text2": ("text_encoder_2", "model", src.text2.state_dict())}
+        nbytes = sum(write_safetensors(torch, os.path.join(xl, sub, f"{stem}.fp16.safetensors"),
+                                       tensors, torch.float16)
+                     for sub, stem, tensors in files.values())
+        n_par = {t: sum(v.numel() for v in f[2].values()) / 1e6 for t, f in files.items()}
+        log(f"  wrote SDXL's fp16 variant files ({nbytes / 1e9:.3f} GB: "
+            + ", ".join(f"{t} {v:.1f} M" for t, v in n_par.items())
+            + f" parameters) in {time.perf_counter() - t0:.1f} s")
+        del files
+        dst = DiffusionPipeline(cfg, "cuda", seed=SEED + 1)
+        gc.collect()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            xl_reports = load_sd_state(os.path.join(xl), dst)
+            load_s = time.perf_counter() - t0
+        log("  " + gpu_name_and_power())
+        for tower, r in xl_reports.items():
+            log("    SDXL load " + _load_line(tower, r))
+        gb = sum(r.nbytes for r in xl_reports.values()) / 1e9
+        log(f"  SDXL load {load_s:.3f} s in all ({gb / load_s:.2f} GB/s); host RSS "
+            f"{rss.base / 1e9:.3f} GB before, peak {rss.peak / 1e9:.3f} GB during "
+            f"(+{(rss.peak - rss.base) / 1e9:.3f} GB against {nbytes / 1e9:.3f} GB of files)")
+        bad = []
+        for tower, r in xl_reports.items():
+            if r.missing or r.unused:
+                bad.append(f"{tower}: missing {r.missing[:3]}, unused {r.unused[:3]}")
+            want = getattr(src, tower).state_dict()
+            for n, v in getattr(dst, tower).state_dict().items():
+                if not torch.equal(v, want[n].to(torch.float16).float().to(v.dtype)):
+                    bad.append(f"{tower}.{n}")
+        log(f"  SDXL tensors against the fp16 values written, widened and rounded once: "
+            f"{len(bad)} differ {bad[:3]}")
+        if bad:
+            raise AssertionError(f"SDXL snapshot load: {bad[:5]}")
+        del src, dst
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+        return snap_gen_shapes, snap_cli_shapes
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1681,7 +2043,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("[1/12] build")
+    log("[1/13] build")
     t0 = time.perf_counter()
     paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
@@ -1694,61 +2056,69 @@ def main() -> int:
     phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    log("[2/12] kernels against their plain versions")
+    log("[2/13] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/12] generation: SD1.5 fp32 256^2 card vs CPU")
+    log("[3/13] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    log("[4/12] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
+    log("[4/13] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    log("[5/12] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
-    gen_shapes = phase_main(torch, kernels)
+    log("[5/13] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    gen = phase_main(torch, kernels)
+    gen_shapes = gen[0]
 
-    log("[6/12] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    log("[6/13] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
     train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    log("[7/12] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    log("[7/13] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
     tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
 
-    log("[8/12] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
+    log("[8/13] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
     full_shapes, full_median, full_peak = phase_train_full(torch, fa, cv, kernels, pipe,
                                                            blip, batch)
     del pipe, blip, batch
 
-    log("[9/12] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
+    log("[9/13] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
         f"512^2, batch 4, {CLI_STEPS} steps, then a run resumed at step {CLI_RESUME}")
-    cli_shapes, encode_shapes, cli_median, cli_peak = phase_trainer_cli(
+    cli_shapes, encode_shapes, cli_median, cli_peak, cli = phase_trainer_cli(
         torch, fa, cv, kernels, full_median, full_peak)
 
-    log("[10/12] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
+    log("[10/13] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
         "then bf16 at batch 4")
     phase_gsam(torch)
 
-    log("[11/12] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
+    log("[11/13] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
         "fp32 card vs CPU")
     phase_sdxl_parity(torch, fa, cv, kernels)
 
-    log("[12/12] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
+    log("[12/13] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
         f"Grounded-SAM, remat), 512^2, batch {SDXL_BATCH}, {SDXL_STEPS} steps")
     sdxl_shapes, sdxl_encode_shapes, _, _ = phase_sdxl_trainer(torch, fa, cv, kernels,
                                                                cli_median, cli_peak)
+
+    log("[13/13] snapshots: SD1.5 and BLIP-large fp32 in a hub cache, the generator and "
+        f"the trainer ({SNAPSHOT_STEPS} steps) from them; SDXL's fp16 variant files")
+    snap_gen_shapes, snap_cli_shapes = phase_snapshots(torch, fa, cv, kernels, gen, cli)
+    del gen, cli
 
     # launches: those of the driven paths, each counted from 0 just before
     # it: generation, the reduced recipe's train step, the same with the
     # VAE trained (bf16), dw in the fp32 train step with the VAE trained
     # (phase 4's card run), the full recipe's step, the latent store's
     # encoding and the trainer CLI's two runs, SDXL's latent store and
-    # its trainer CLI's run
+    # its trainer CLI's run, the generation and the trainer's run from the
+    # SD1.5 snapshot
     paths = {"generate": gen_shapes, "train": train_shapes,
              "train_tune_vae_bf16": tune_bf16_shapes,
              "train_tune_vae": {cv.DW_KERNEL.symbol: tune_vae_shapes[cv.DW_KERNEL.symbol]},
              "train_full": full_shapes, "gan_store_encode": encode_shapes,
              "trainer_cli": cli_shapes, "sdxl_gan_store_encode": sdxl_encode_shapes,
-             "sdxl_trainer_cli": sdxl_shapes}
+             "sdxl_trainer_cli": sdxl_shapes, "snapshot_generate": snap_gen_shapes,
+             "snapshot_trainer_cli": snap_cli_shapes}
     for e in entries:
         key = tuple(e.pop("key"))
         for path, shapes in paths.items():

@@ -312,13 +312,20 @@ def make_blip(cfg: BLIPConfig, device=None,
     """The captioner on `device` (CUDA unless the caller says otherwise;
     asking for CUDA without a card raises), frozen, holding `params` (a
     state dict, as `weights.from_jax_params` makes under "blip") or
-    weights drawn from `seed` (`weights.init_weights_`)."""
+    weights drawn from `seed` (`weights.init_weights_`, the LM head's
+    decoder weight then set to the word embeddings)."""
     device = resolve_device(device)
     with torch.device("meta"):
         blip = BLIPCaptioner(cfg)
     blip = blip.to_empty(device=device).eval().requires_grad_(False)
     if params is None:
         init_weights_(blip, torch.Generator(device=device).manual_seed(seed))
+        # the LM head tied to the word embeddings, as transformers ties it,
+        # so that a snapshot saved without the head (`save_pretrained`
+        # drops tied tensors) holds the seeded captioner whole
+        emb = blip.text_decoder.bert.embeddings.word_embeddings.weight
+        with torch.no_grad():
+            blip.text_decoder.cls.predictions.decoder.weight.copy_(emb.float())
     else:
         blip.load_state_dict(params)
     return blip

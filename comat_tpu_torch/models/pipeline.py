@@ -44,7 +44,7 @@ from comat_tpu_torch.diffusion.schedulers import (
     sample_dpmpp_2m,
 )
 from comat_tpu_torch.models.clip_text import CLIPTextEncoder
-from comat_tpu_torch.models.lora import fuse_lora
+from comat_tpu_torch.models.lora import fuse_lora, is_lora_path
 from comat_tpu_torch.models.remat import Remat
 from comat_tpu_torch.models.unet import UNet2DConditionModel
 from comat_tpu_torch.models.vae import AutoencoderKL
@@ -166,7 +166,10 @@ class DiffusionPipeline:
 
     `params` is {"unet", "text", "vae"} state dicts, and "text2" for
     SDXL (as `state_dicts()` returns or `weights.from_jax_params` makes);
-    without it the weights are drawn from `seed` (`weights.init_weights_`).
+    without it the weights are drawn from `seed` (`weights.init_weights_`):
+    the towers first, then the UNet's LoRA factors, so that a seed gives
+    the towers the same weights at every LoRA rank (`hf_import.load_sd_state`
+    loads a diffusers snapshot over them).
 
     `fuse_pass1=False` (JAX's memory-tight flag, --gradient_checkpointing)
     builds no LoRA-free twin `unet_inf`: it would hold a second copy of
@@ -199,8 +202,10 @@ class DiffusionPipeline:
         self.masters: Dict[str, torch.Tensor] = {}
         if params is None:
             g = torch.Generator(device=self.device).manual_seed(seed)
+            lora = {n for n, _ in self.unet.named_parameters() if is_lora_path(n)}
             for module in self._towers().values():
-                init_weights_(module, g)
+                init_weights_(module, g, skip=lora if module is self.unet else ())
+            init_weights_(self.unet, g, skip=set(self.unet.state_dict()) - lora)
         else:
             self.load_params(params)
 

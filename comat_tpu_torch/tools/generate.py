@@ -3,13 +3,20 @@
 Port of comat_tpu/tools/generate.py: prompts -> PNG images with the
 DDPM, DDIM or DPM++ 2M sampler, on CUDA unless `--device cpu`, for SD1.5
 (`--model sd_1_5`) or SDXL (`--model sdxl`: both text towers, the second
-reading the pad-id-0 tokenizer's ids). Weights
-are drawn from `--seed` (loading a diffusers snapshot and training
-checkpoints is not ported yet). Example:
+reading the pad-id-0 tokenizer's ids). The towers load from the diffusers
+snapshot `--pretrain-model` names (a folder, or a repo id resolved
+through `--cache-dir`'s hub cache), else keep weights drawn from `--seed`;
+`--checkpoint` puts a trained LoRA over them: a checkpoint folder of the
+port's trainer (its `pytorch_lora_weights.safetensors`, with the towers it
+trained) or such a file, its rank read from the file. Sampling runs the
+UNet with the LoRA folded in. Examples:
 
     python -m comat_tpu_torch.tools.generate --tiny --device cpu \\
         --prompt "a red cube"
     python -m comat_tpu_torch.tools.generate --model sdxl --prompt "a red cube"
+    python -m comat_tpu_torch.tools.generate --prompt "a red cube" \\
+        --pretrain-model runwayml/stable-diffusion-v1-5 --cache-dir ~/hf \\
+        --tokenizer-dir <snapshot>/tokenizer --checkpoint out/checkpoint-2000
 """
 
 from __future__ import annotations
@@ -33,6 +40,12 @@ def parse_args(argv=None):
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tokenizer-dir", default=None)
+    p.add_argument("--pretrain-model", default=None,
+                   help="diffusers snapshot folder, or a repo id under --cache-dir")
+    p.add_argument("--cache-dir", default=None, help="HF hub cache root")
+    p.add_argument("--checkpoint", default=None,
+                   help="the trainer's checkpoint-{step} folder or a "
+                        "pytorch_lora_weights.safetensors")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -55,6 +68,51 @@ def write_png(path: str, image) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+def _load_weights(args, pipe, lora_path) -> None:
+    """The snapshot, then the checkpoint, into `pipe` in place; a tensor
+    either lacks raises. Prints the bytes and seconds of the loads."""
+    from comat_tpu_torch.models import hf_import
+    from comat_tpu_torch.training.checkpoints import load_safetensors
+
+    reports = []
+    if args.pretrain_model:
+        snap = hf_import.resolve_snapshot(args.pretrain_model, args.cache_dir)
+        if not (snap and os.path.isdir(snap)):
+            raise FileNotFoundError(f"--pretrain-model {args.pretrain_model!r}: no snapshot "
+                                    f"folder (looked at {snap!r})")
+        for tower, r in hf_import.load_sd_state(snap, pipe).items():
+            if r.missing:
+                raise ValueError(f"{snap}: {tower} lacks {len(r.missing)} tensors "
+                                 f"(first: {r.missing[:5]})")
+            if r.unused:
+                print(f"{snap}: {len(r.unused)} unused {tower} tensors "
+                      f"(first: {r.unused[:3]})")
+            reports.append(r)
+    else:
+        print(f"no --pretrain-model: the towers keep weights drawn from --seed {args.seed}")
+    if lora_path:
+        # the UNet's factors, and the towers the trainer trained, exported
+        # under the port's own names ("vae.<name>", "text.<name>")
+        tensors = load_safetensors(lora_path)
+        bad = []
+        for tower in ("vae", "text", "text2"):
+            own = {n[len(tower) + 1:]: tensors.pop(n) for n in list(tensors)
+                   if n.startswith(tower + ".")}
+            if own:
+                reports.append(hf_import.load_into(getattr(pipe, tower), own))
+                bad += reports[-1].unused
+        reports.append(hf_import.load_into(pipe.unet, hf_import.lora_from_diffusers(tensors),
+                                           lora=True))
+        bad += reports[-1].missing + reports[-1].unused
+        if bad:
+            raise ValueError(f"{lora_path}: {len(bad)} tensors missing or not the "
+                             f"pipeline's (first: {bad[:5]})")
+    if reports:
+        print(f"loaded {sum(r.nbytes for r in reports) / 1e9:.3f} GB of weights: read "
+              f"{sum(r.read_s for r in reports):.3f} s, copied to {pipe.device} in "
+              f"{sum(r.copy_s for r in reports):.3f} s")
+
+
 def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
     """Generate, write `<out-dir>/NNN.png`, and return (images (B, H, W, 3)
     in [0, 1], {"sample_s", "decode_s"} wall seconds)."""
@@ -62,15 +120,24 @@ def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
     import numpy as np
     import torch
 
+    from comat_tpu_torch.models.hf_import import lora_rank
     from comat_tpu_torch.models.pipeline import (
         DiffusionPipeline, make_pipeline_config,
     )
     from comat_tpu_torch.text.tokenizer import HashTokenizer, load_clip_tokenizer
 
+    lora_path, rank = None, 0
+    if args.checkpoint:
+        lora_path = (os.path.join(args.checkpoint, "pytorch_lora_weights.safetensors")
+                     if os.path.isdir(args.checkpoint) else args.checkpoint)
+        rank = lora_rank(lora_path)
+        if not rank:
+            raise ValueError(f"--checkpoint {lora_path}: no UNet LoRA factors")
     pcfg = make_pipeline_config(
-        args.model, lora_rank=0, resolution=args.resolution, tiny=args.tiny,
+        args.model, lora_rank=rank, resolution=args.resolution, tiny=args.tiny,
     )
     pipe = DiffusionPipeline(pcfg, device=args.device, seed=args.seed)
+    _load_weights(args, pipe, lora_path)
     tok = (HashTokenizer(pcfg.text.vocab_size) if args.tiny
            else load_clip_tokenizer(args.tokenizer_dir))
     prompts = list(args.prompt)

@@ -17,7 +17,6 @@ import shlex
 from typing import List
 
 _SURFACES = "ROADMAP Queue 1: trainable surfaces and the optimizer"
-_LOADERS = "ROADMAP Queue 1: snapshot loaders, tested on synthetic snapshots"
 _DDP = "ROADMAP Queue 1: torch DDP with gradient accumulation"
 
 
@@ -38,8 +37,6 @@ def _check_ported(args) -> None:
         ("--tune_text_encoder with an SDXL model",
          args.tune_text_encoder and args.pretrain_model_name.startswith("sdxl"),
          _SURFACES),
-        ("--blip_tokenizer_vocab", args.blip_tokenizer_vocab, _LOADERS),
-        ("--caption_model_path", args.caption_model_path, _LOADERS),
     ]
     for flag, is_set, item in unported:
         if is_set:

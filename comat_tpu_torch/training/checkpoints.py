@@ -148,22 +148,28 @@ _SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8",
 
 def load_safetensors(path: str) -> Dict[str, np.ndarray]:
     """Every tensor of a .safetensors file as numpy arrays (the reader of
-    `save_safetensors`' format; BF16 comes back as float32, exactly)."""
+    `save_safetensors`' format). The file is not read here: each tensor is
+    a copy-on-write memory map of its own byte range, so a page is read
+    when the array is first touched and is let go when the array is, and
+    a caller that drops each tensor after using it holds about one tensor
+    of the file in host memory at a time. BF16 is widened to float32
+    (exactly), which reads it at once."""
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(n))
-        data = f.read()
     out = {}
     for name, info in header.items():
         if name == "__metadata__":
             continue
         a, b = info["data_offsets"]
-        raw, shape = data[a:b], tuple(info["shape"])
-        if info["dtype"] == "BF16":
-            bits = np.frombuffer(raw, "<u2").astype(np.uint32) << 16
-            out[name] = bits.view(np.float32).reshape(shape)
+        shape = tuple(info["shape"])
+        bf16 = info["dtype"] == "BF16"
+        dtype = np.dtype("<u2" if bf16 else _SAFETENSORS_DTYPES[info["dtype"]])
+        if b == a:
+            arr = np.zeros(shape, dtype)
         else:
-            out[name] = np.frombuffer(raw, _SAFETENSORS_DTYPES[info["dtype"]]).reshape(shape)
+            arr = np.memmap(path, dtype, mode="c", offset=8 + n + a, shape=shape)
+        out[name] = (arr.astype(np.uint32) << 16).view(np.float32) if bf16 else arr
     return out
 
 

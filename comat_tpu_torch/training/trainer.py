@@ -20,13 +20,21 @@ cross-architecture D, an SD1.5 UNet of its own (seeded) conditioned on
 CLIP-L's final states; `--gan_model_arch sdxl` an SDXL D sharing the
 generator's base, as with SD1.5.
 
-Weights are drawn from --seed; loading a diffusers snapshot is not ported
-(ROADMAP Queue 1: snapshot loaders), so an existing --pretrain_model
-directory raises, and a missing one warns and starts from random weights,
-as JAX does. `--sdxl_unet_path` swaps in a diffusers-named UNet
-.safetensors over those weights. Real runs refuse the smoke fallbacks
-(hash tokenizers, random caption weights, zero GAN latents) unless
---allow_smoke.
+Weights: the towers load from the diffusers snapshot --pretrain_model
+names (a folder, or a repo id resolved through --cache_dir's hub cache),
+in place over weights drawn from --seed; `--sdxl_unet_path` (a diffusers
+UNet .safetensors or folder) swaps in a UNet over them; the caption model
+loads from --caption_model_path, else from the reference's
+Salesforce/blip-image-captioning-large resolved through --cache_dir, and
+its tokenizer from --blip_tokenizer_vocab (`models/hf_import.py`). The
+file sets are chosen before any weights are made, so a folder without
+safetensors raises at once. With --tune_vae / --tune_text_encoder the
+trained bf16 towers' fp32 masters are the snapshot's values, as JAX's
+fp32 leaves are. A cross-architecture D keeps its seeded SD1.5 tower, as
+in JAX. Real runs refuse the smoke fallbacks (seeded tower or caption
+weights, tensors a snapshot lacks, hash tokenizers, zero GAN latents)
+unless --allow_smoke (`smoke_fallbacks` lists those taken); a snapshot
+that lacks a tower's tensors is refused at --tiny_models too.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import math
 import os
 import signal
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,13 +51,26 @@ import torch
 from comat_tpu_torch.config import BLIPConfig, UNetConfig
 from comat_tpu_torch.losses.gan import Discriminator, GanConfig
 from comat_tpu_torch.models.blip import make_blip
-from comat_tpu_torch.models.lora import is_lora_path
+from comat_tpu_torch.models.hf_import import (
+    CAPTION_MODEL_ID,
+    SNAPSHOT_TOWERS,
+    LoadReport,
+    load_blip_state,
+    load_sd_state,
+    load_unet_state,
+    resolve_snapshot,
+    safetensors_files,
+)
 from comat_tpu_torch.models.pipeline import (
     DiffusionPipeline,
     make_pipeline_config,
     resolve_device,
 )
-from comat_tpu_torch.text.tokenizer import HashTokenizer, load_clip_tokenizer
+from comat_tpu_torch.text.tokenizer import (
+    BertWordPieceTokenizer,
+    HashTokenizer,
+    load_clip_tokenizer,
+)
 from comat_tpu_torch.training import checkpoints as ckpt_lib
 from comat_tpu_torch.training.data import (
     GanLatentStore,
@@ -68,9 +89,6 @@ from comat_tpu_torch.training.train_step import (
     make_train_step,
     sample_draws,
 )
-from comat_tpu_torch.weights import unet_from_diffusers
-
-_LOADERS = "ROADMAP Queue 1: snapshot loaders, tested on synthetic snapshots"
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -114,33 +132,6 @@ def lr_schedule(args) -> Callable[[int], float]:
     raise ValueError(f"unknown lr_scheduler {args.lr_scheduler!r}")
 
 
-def resolve_snapshot(path: Optional[str], cache_dir: Optional[str]) -> Optional[str]:
-    """A HF repo id resolved against --cache_dir's hub layout
-    (cache_dir/models--org--name/snapshots/<rev>) or a plain
-    cache_dir/name directory; a local path as it is (JAX's
-    `Trainer._resolve_snapshot`)."""
-    if not path or os.path.isdir(path) or not cache_dir:
-        return path
-    for c in (os.path.join(cache_dir, "models--" + path.replace("/", "--"), "snapshots"),
-              os.path.join(cache_dir, path.split("/")[-1]),
-              os.path.join(cache_dir, path)):
-        if not os.path.isdir(c):
-            continue
-        if not c.endswith("snapshots"):
-            return c
-        ref = os.path.join(os.path.dirname(c), "refs", "main")
-        if os.path.isfile(ref):
-            with open(ref) as f:
-                rev = os.path.join(c, f.read().strip())
-            if os.path.isdir(rev):
-                return rev
-        revs = [os.path.join(c, r) for r in os.listdir(c)
-                if os.path.isdir(os.path.join(c, r))]
-        if revs:
-            return max(revs, key=os.path.getmtime)
-    return path
-
-
 class Trainer:
     """`probe`: called at each mark of every step's PhaseClock (e.g. to
     read kernel launch counters); the differences it reads are summed
@@ -179,27 +170,30 @@ class Trainer:
         )
 
         # cheap checks first, before any weights are made
-        if not tiny:
-            self._smoke_gate(
-                "caption-model weights are not loaded (ROADMAP Queue 1: snapshot "
-                "loaders): the concept-matching reward would score with a "
-                "random-weight BLIP")
+        # (kind, why) of each smoke fallback taken under --allow_smoke
+        self.smoke_fallbacks: List[Tuple[str, str]] = []
+        self.snapshot = self._resolve_pretrained(tiny)
+        self.caption_dir = self._resolve_caption_weights(tiny)
         if args.gan_loss and not args.gan_gt_path and not tiny:
             self._smoke_gate(
                 "--gan_loss without --gan_gt_path: the discriminator would train "
-                "against all-zero GT latents")
+                "against all-zero GT latents", kind="data")
         if tiny:
             self.clip_tok = HashTokenizer(self.pcfg.text.vocab_size)
-            self.caption_tok = HashTokenizer(self.blip_cfg.vocab_size)
         else:
             self.clip_tok = load_clip_tokenizer(args.tokenizer_dir)
             if isinstance(self.clip_tok, HashTokenizer):
                 self._smoke_gate(
                     "no CLIP tokenizer files found (--tokenizer_dir); a "
                     "HashTokenizer would feed garbage ids to real text-encoder "
-                    "weights")
-            self._smoke_gate("no --blip_tokenizer_vocab: the caption reward "
-                             "would tokenize with a HashTokenizer")
+                    "weights", kind="tokenizer")
+        if args.blip_tokenizer_vocab:
+            # an explicit vocabulary is read at --tiny_models too
+            self.caption_tok = BertWordPieceTokenizer(args.blip_tokenizer_vocab)
+        else:
+            if not tiny:
+                self._smoke_gate("no --blip_tokenizer_vocab: the caption reward "
+                                 "would tokenize with a HashTokenizer", kind="tokenizer")
             self.caption_tok = HashTokenizer(self.blip_cfg.vocab_size)
         # SDXL's second tokenizer (reference AttrConcenTrainableSDXLPipeline.py:
         # 21-22): CLIP-L's BPE, padding with "!" (id 0), so that the bigG
@@ -210,13 +204,6 @@ class Trainer:
                 HashTokenizer(self.pcfg.text.vocab_size, pad_token_id=0) if tiny
                 else load_clip_tokenizer(args.tokenizer2_dir or args.tokenizer_dir,
                                          pad_token_id=0))
-        weights = resolve_snapshot(args.pretrain_model, args.cache_dir)
-        if weights and os.path.isdir(weights):
-            raise NotImplementedError(
-                f"--pretrain_model {weights}: loading a snapshot is not ported yet, "
-                f"{_LOADERS}")
-        self.logger.warning("pretrained weights unavailable at %r; random init",
-                            weights)
 
         if args.max_train_steps is None:
             # from --num_train_epochs before the schedule needs the horizon
@@ -231,12 +218,18 @@ class Trainer:
         seed = args.seed if args.seed is not None else 0
         self.pipeline = DiffusionPipeline(self.pcfg, self.device, seed=seed,
                                           fuse_pass1=not args.gradient_checkpointing)
-        if args.sdxl_unet_path:
-            self._load_unet(args.sdxl_unet_path)
+        # in place, before the train state and D exist: the masters of a
+        # trained bf16 tower are the snapshot's fp32 values
+        self.load_reports: Dict[str, LoadReport] = {}
+        masters = self._load_pretrained(args)
         self.blip = make_blip(self.blip_cfg, self.device, seed=seed + 1)
+        if self.caption_dir:
+            report = self._record_load("caption_model", self.caption_dir,
+                                       load_blip_state(self.caption_dir, self.blip))
+            self._gate_missing("caption model", self.caption_dir, report.missing)
         self.state = init_train_state(self.pipeline, self.tcfg, tune_vae=args.tune_vae,
                                       tune_text_encoder=args.tune_text_encoder,
-                                      lr_schedule=self.lr_fn)
+                                      initial_masters=masters, lr_schedule=self.lr_fn)
 
         self.disc = self.d_state = self.latent_store = None
         if args.gan_loss:
@@ -252,9 +245,11 @@ class Trainer:
                                 cross_arch=cross_arch)
             if cross_arch:
                 # the published SDXL recipe's SD1.5-architecture D over SDXL
-                # latents (64x64x4 in both): a tower of its own, seeded (the
-                # reference loads the SD1.5 snapshot for it), conditioned on
-                # CLIP-L's 768-wide states
+                # latents (64x64x4 in both): a tower of its own, seeded as
+                # in JAX (the reference loads the SD1.5 snapshot for it),
+                # conditioned on CLIP-L's 768-wide states
+                self.logger.warning("the SD1.5-architecture discriminator's UNet is "
+                                    "seeded, as in JAX (the reference loads SD1.5)")
                 d_unet = (UNetConfig.tiny(cross_attention_dim=self.pcfg.text.hidden_size)
                           if tiny else UNetConfig.sd15())
                 self.disc = Discriminator(d_unet, gan_cfg, self.device, seed=seed + 2)
@@ -343,22 +338,99 @@ class Trainer:
         except ValueError:
             pass    # not the main thread
 
-    def _load_unet(self, path: str) -> None:
-        """--sdxl_unet_path: a separately fine-tuned UNet swapped in over the
-        generator's (reference training_utils/pipeline.py:28): a .safetensors
-        file under diffusers' names, read with the port's own reader. The
-        generator's tensors it does not hold (the LoRA factors aside) and its
-        tensors the UNet does not hold are logged, not raised, as JAX logs
-        its unmapped names."""
-        missing, unused = self.pipeline.unet.load_state_dict(
-            unet_from_diffusers(ckpt_lib.load_safetensors(path)), strict=False)
-        missing = [n for n in missing if not is_lora_path(n)]
-        if missing or unused:
-            self.logger.warning(
-                "sdxl_unet_path: %d unmapped params (first: %s), %d unused tensors "
-                "(first: %s)", len(missing), missing[:3], len(unused), unused[:3])
+    def _resolve_pretrained(self, tiny: bool) -> Optional[str]:
+        """--pretrain_model resolved (through --cache_dir for a repo id) to
+        a snapshot folder, whose file sets are chosen now: a component
+        folder without safetensors, or with several variants and no
+        non-variant set, raises before any weights are made. Without a
+        snapshot the towers keep their seeded weights: a real run refuses
+        that unless --allow_smoke; --tiny_models warns, as JAX does."""
+        path = resolve_snapshot(self.args.pretrain_model, self.args.cache_dir)
+        if not (path and os.path.isdir(path)):
+            why = (f"pretrained weights unavailable at {path!r}: the towers would keep "
+                   "seeded weights. Pass --pretrain_model a snapshot folder or populate "
+                   "--cache_dir")
+            if tiny:
+                self.logger.warning(why)
+            else:
+                self._smoke_gate(why, kind="weights")
+            return None
+        for tower, sub in SNAPSHOT_TOWERS:
+            d = os.path.join(path, sub)
+            if (tower != "text2" or self.pcfg.is_sdxl) and os.path.isdir(d):
+                safetensors_files(d)
+        return path
+
+    def _resolve_caption_weights(self, tiny: bool) -> Optional[str]:
+        """The caption model's snapshot: --caption_model_path, else the
+        reference's default id (load_captionmodel.py:3-8), either resolved
+        through --cache_dir (JAX's `_resolve_caption_weights`).
+        --tiny_models reads only an explicitly named snapshot; a real run
+        without one refuses the seeded captioner unless --allow_smoke."""
+        named = self.args.caption_model_path
+        if tiny and not named:
+            return None
+        path = resolve_snapshot(named or CAPTION_MODEL_ID, self.args.cache_dir)
+        if path and os.path.isdir(path):
+            safetensors_files(path)
+            return path
+        why = (f"caption-model weights unavailable (looked at {path!r}): the "
+               "concept-matching reward would score with a random-weight BLIP. Pass "
+               "--caption_model_path or populate --cache_dir")
+        if tiny:
+            self.logger.warning(why)
         else:
-            self.logger.info("loaded fine-tuned UNet from %s", path)
+            self._smoke_gate(why, kind="weights")
+        return None
+
+    def _record_load(self, what: str, path: str, report: LoadReport) -> LoadReport:
+        self.load_reports[what] = report
+        gb = report.nbytes / 1e9
+        secs = report.read_s + report.copy_s
+        self.logger.info("loaded %s from %s: %.3f GB, read %.3f s, copy to %s %.3f s "
+                         "(%.2f GB/s)", what, path, gb, report.read_s, self.device,
+                         report.copy_s, gb / secs if secs else 0.0)
+        if report.unused:
+            self.logger.warning("%s: %d unused tensors in %s (first: %s)", what,
+                                len(report.unused), path, report.unused[:3])
+        return report
+
+    def _gate_missing(self, what: str, path: str, missing: List[str]) -> None:
+        """Tensors a snapshot lacks keep their seeded values: refused unless
+        --allow_smoke, at --tiny_models too."""
+        if missing:
+            self._smoke_gate(f"{what} {path} lacks {len(missing)} tensors (first: "
+                             f"{missing[:5]}): they would keep seeded weights",
+                             kind="weights")
+
+    def _load_pretrained(self, args) -> Dict[str, torch.Tensor]:
+        """The snapshot into the pipeline's towers, then --sdxl_unet_path's
+        UNet over it (reference training_utils/pipeline.py:28). Returns
+        the fp32 masters of the towers --tune_vae / --tune_text_encoder
+        train. The swapped-in UNet's missing and unused names are logged,
+        as JAX logs its unmapped names; the towers' missing tensors, the
+        swap's aside, go through the smoke gate."""
+        keep = [t for t, on in (("vae", args.tune_vae), ("text", args.tune_text_encoder))
+                if on]
+        reports = {}
+        if self.snapshot:
+            reports = load_sd_state(self.snapshot, self.pipeline, keep_masters=keep)
+            for tower, report in reports.items():
+                self._record_load(tower, self.snapshot, report)
+        if args.sdxl_unet_path:
+            swap = self._record_load("sdxl_unet_path", args.sdxl_unet_path,
+                                     load_unet_state(args.sdxl_unet_path, self.pipeline.unet))
+            if swap.missing or swap.unused:
+                self.logger.warning(
+                    "sdxl_unet_path: %d unmapped params (first: %s), %d unused tensors "
+                    "(first: %s)", len(swap.missing), swap.missing[:3], len(swap.unused),
+                    swap.unused[:3])
+            if "unet" in reports:
+                kept = set(swap.missing)
+                reports["unet"].missing = [n for n in reports["unet"].missing if n in kept]
+        missing = [f"{tower}.{n}" for tower, r in reports.items() for n in r.missing]
+        self._gate_missing("snapshot", self.snapshot, missing)
+        return {n: m for r in reports.values() for n, m in r.masters.items()}
 
     def _build_gsam_segmenter(self, args, seed: int):
         """The reference's default segmenter (--seg_model gsam): FastSAM-x
@@ -400,11 +472,13 @@ class Trainer:
                                 "nouns with a HashTokenizer")
         return seg
 
-    def _smoke_gate(self, why: str) -> None:
-        """Refuse a fidelity-degrading fallback in a real (non-tiny) run
-        unless --allow_smoke."""
+    def _smoke_gate(self, why: str, kind: str) -> None:
+        """Refuse a fidelity-degrading fallback unless --allow_smoke;
+        `kind` ("weights", "tokenizer", "data") files it in
+        `smoke_fallbacks` when allowed."""
         if self.args.allow_smoke:
             self.logger.warning("SMOKE MODE: %s", why)
+            self.smoke_fallbacks.append((kind, why))
             return
         raise RuntimeError(f"refusing to continue: {why}. Pass --allow_smoke to run "
                            "anyway (smoke testing only).")

@@ -22,6 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 
+# the snapshot name maps live with the loaders; imported here for callers
+from comat_tpu_torch.models.hf_import import blip_from_hf, unet_from_diffusers  # noqa: F401
+
 
 def _dense(x):
     return np.asarray(x).T
@@ -245,24 +248,6 @@ def _blip_rule(path: Tuple[str, ...]) -> Optional[Rule]:
         return (f"{head}decoder.weight", _dense) if leaf == "kernel" else (
             f"{head}bias", _same)
     return None
-
-
-def blip_from_hf(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A transformers `BlipForConditionalGeneration` state dict (or the
-    tensors of its safetensors snapshot) -> the port captioner's state
-    dict. The names are the same; HF ties the LM head's decoder weight to
-    the word embeddings and its decoder bias to `predictions.bias`, and a
-    safetensors snapshot drops the tied weight, so it is restored from the
-    embeddings (the port's copy of `hf_import._alias_tied_blip`). Tensors
-    the captioner does not hold (the tied bias, `position_ids` buffers)
-    are dropped."""
-    head = "text_decoder.cls.predictions."
-    out = {k: v for k, v in tensors.items()
-           if not k.endswith("position_ids") and k != head + "decoder.bias"}
-    if head + "decoder.weight" not in out:
-        out[head + "decoder.weight"] = out[
-            "text_decoder.bert.embeddings.word_embeddings.weight"]
-    return out
 
 
 def _swap_mid_blocks(x: np.ndarray, axis: int) -> np.ndarray:
@@ -521,28 +506,6 @@ def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
         out["fastsam"].update(_convert(fs.get("batch_stats", {}), _fastsam_rule))
     if "disc" in tree:
         out["disc"] = _disc_convert(tree["disc"])
-    return out
-
-
-_ATTN_PROJ = re.compile(r"(.+\.attn[12]\.(?:to_q|to_k|to_v|to_out\.0))\.(weight|bias)")
-
-
-def unet_from_diffusers(tensors: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """A diffusers UNet2DConditionModel's tensors (its safetensors file)
-    under the port UNet's names: an attention projection's weight and bias
-    move under `.base` (models/lora.py), and a transformer's proj_in /
-    proj_out stored as a 1x1 conv (SD1.5; SDXL's are linear) loses its
-    two unit dims (the port's copy of `hf_import._unet_hf_name`'s
-    `proj_f`). Every other name is the port's own."""
-    out = {}
-    for name, value in tensors.items():
-        value = np.asarray(value)
-        m = _ATTN_PROJ.fullmatch(name)
-        if m:
-            name = f"{m.group(1)}.base.{m.group(2)}"
-        elif re.search(r"\.attentions\.\d+\.proj_(in|out)\.weight$", name) and value.ndim == 4:
-            value = value[:, :, 0, 0]
-        out[name] = torch.tensor(value)
     return out
 
 

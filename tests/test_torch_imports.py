@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax():
             "comat_tpu_torch.segmentation.gdino", "comat_tpu_torch.segmentation.fastsam",
             "comat_tpu_torch.segmentation.grounded_sam",
             "comat_tpu_torch.segmentation.checkpoints",
-            "comat_tpu_torch.segmentation.gdino_import_hf"} <= set(mods)
+            "comat_tpu_torch.segmentation.gdino_import_hf",
+            "comat_tpu_torch.models.hf_import"} <= set(mods)
     res = _run(f"""
         import importlib, sys
         for m in {mods!r}:

@@ -78,7 +78,7 @@ def test_parser_matches_jax_on_sd15_flags(monkeypatch):
     ["--use_8bit_adam"], ["--full_finetuning"], ["--train_text_encoder_lora"],
     ["--gradient_accumulation_steps", "2"],
     ["--pretrain_model_name", "sdxl", "--tune_text_encoder"],
-    ["--blip_tokenizer_vocab", "vocab.txt"], ["--caption_model_path", "blip"]])
+    ["--pass1_int8"], ["--prediction_type", "v_prediction"]])
 def test_unported_flags_raise_naming_their_item(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "):
         targs.parse_args(["--training_prompts", "p.txt", *flags])
@@ -195,11 +195,11 @@ def _args(tmp_path, *extra):
 def test_smoke_gates_raise_without_allow_smoke(tmp_path):
     with pytest.raises(RuntimeError, match="--allow_smoke"):
         Trainer(_args(tmp_path))
-    (tmp_path / "snapshot").mkdir()
+    (tmp_path / "snapshot" / "unet").mkdir(parents=True)
     # --seg_model gsam passes the checks made before any weights; a
-    # snapshot to load still raises there
+    # snapshot whose unet/ folder holds no safetensors is refused there
     for seg in ("gsam", "center_prior"):
-        with pytest.raises(NotImplementedError, match="snapshot loaders"):
+        with pytest.raises(FileNotFoundError, match="no .safetensors file in .*unet"):
             Trainer(_args(tmp_path, "--allow_smoke", "--seg_model", seg,
                           "--pretrain_model", str(tmp_path / "snapshot")))
 

@@ -126,13 +126,33 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    fresh SDXL pipeline: every tensor the fp16 value rounded once, none
    missing. The seconds and GB/s of each load, file read and copy to the
    card apart, and the host RSS's peak during the SDXL load.
+14. the latent store and accumulation: `tools.gan_gt_generate.main` on the
+   first 8 prompts of merged_data/abc5k_hrs10k_t2icompall_20k.txt at
+   512^2 (SD1.5 seeded with the launcher's seed, batch 4, 50 DDPM steps,
+   no decode: 1500 A and no B), read back by `GanLatentStore`, and again
+   with --use-cache (nothing generated); then the trainer on sd15.sh's
+   flags over those prompts and that store (no smoke fallback of kind
+   "data") with --gradient_accumulation_steps 2 for 4 micro-steps: the
+   LoRA factors unchanged after micro-steps 1 and 3 and all changed after
+   2 and 4, D's tensors all changed every micro-step, the launches by role
+   phase 9's a micro-step; a run resumed from checkpoint-3 ends micro-step
+   4 bit for bit (the running mean included). The store's seconds a batch,
+   the seconds of micro-steps and applying steps apart, the peak memory;
+15. the evaluator: BLIP-VQA at base width (ViT-B/16) in fp32, seeded, card
+   against CPU on 2 images x 3 questions, both answer log-likelihoods and
+   P(yes) within 1e-3 of each one's max abs; then `tools.evaluate.main`
+   at 512^2 on 4 prompts of the same corpus with a colour word, one batch,
+   --metric both --allow-smoke: a row a prompt, every P(yes) in [0, 1], a
+   finite reward, 751 A and 21 B; generation, decode, reward and BLIP-VQA
+   seconds apart.
 Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
 in the driven paths: generation, the reduced recipe's train step, the
 same step with the VAE trained, phase 4's fp32 card run of the train step
 with the VAE trained (dw), the full recipe's step, the latent store's
-encoding, the trainer CLI's run, SDXL's latent store and trainer run, and
-the generation and trainer run from the SD1.5 snapshot. Weights are
+encoding, the trainer CLI's run, SDXL's latent store and trainer run,
+the generation and trainer run from the SD1.5 snapshot, the latent tool's
+store, the accumulated trainer's runs and the evaluator. Weights are
 random (the real ones are not in the repository); depth is not cut.
 """
 
@@ -1260,6 +1280,7 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30    # by earlier phases
     reset(kernels)
     t0 = time.perf_counter()
     trainer = Trainer(parse_args(argv_first), probe=probe)
@@ -1283,7 +1304,8 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     seg_sum = sum(median[k] for k in ts.PHASES if k not in ("s_capture", "s_segment_host"))
     log(f"  trainer_cli: {median['s_step']:.3f} s per step on the device "
         f"({median['sec_per_step']:.3f} s wall, median of steps 2-{CLI_STEPS}; "
-        f"segments sum to {seg_sum:.3f} s), peak memory {peak:.1f} GiB, "
+        f"segments sum to {seg_sum:.3f} s), peak memory {peak:.1f} GiB ({peak - held:.2f} "
+        f"above the {held:.2f} GiB held before the trainer), "
         f"run {wall:.1f} s ({n_val} validation images, {n_val} checkpoints)")
     log("  validation (one prompt, 50 DDPM steps, one fused UNet each): " + ", ".join(
         f"step {step} {sec:.3f} s" for step, sec in trainer.validation_times))
@@ -2025,6 +2047,305 @@ def phase_snapshots(torch, fa, cv, kernels, gen, cli):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 14: the port's GAN latent tool makes a store from the corpus'
+# first prompts, then the trainer takes sd15.sh's flags on it with
+# gradient accumulation; the store samples each batch with the fused UNet
+# (15 A a call, 50 calls) and decodes nothing
+GAN_GT_CORPUS = os.path.join("merged_data", "abc5k_hrs10k_t2icompall_20k.txt")
+GAN_GT_PROMPTS, GAN_GT_BATCH = 8, 4
+GAN_GT_LAUNCHES = {"flash_fwd": 15 * 50 * (GAN_GT_PROMPTS // GAN_GT_BATCH)}
+ACCUM_N, ACCUM_STEPS, ACCUM_RESUME = 2, 4, 3
+# phase 15: BLIP-VQA at base width, card against CPU in fp32 (relative to
+# each output's max abs), then the evaluator on 4 attribute-bearing
+# prompts in one batch: 50 guided UNet calls and the decode
+VQA_PARITY_TOL = 1e-3
+EVAL_PROMPTS = 4
+EVAL_LAUNCHES = {"flash_fwd": 751, "conv_fwd": 21}
+COLOURS = ("red", "blue", "green", "yellow", "white", "black", "brown", "orange", "pink",
+           "purple")
+
+
+def _write_prompts(path, prompts) -> str:
+    with open(path, "w") as f:
+        f.write("\n".join(prompts) + "\n")
+    return path
+
+
+def _trained(module_state):
+    return {n: p.detach().clone() for n, p in module_state.items()}
+
+
+def phase_gan_store_accum(torch, fa, cv, kernels, cli_median, cli_peak):
+    """(a) `tools.gan_gt_generate.main` writes a latent store for the
+    corpus' first GAN_GT_PROMPTS prompts at 512^2 (SD1.5 seeded with the
+    launcher's seed, as phase 9's trainer seeds it; batch GAN_GT_BATCH, 50
+    DDPM steps): A launches only, every prompt read back at (64, 64, 4)
+    finite, and a second call with --use-cache generates nothing. (b) The
+    trainer on sd15.sh's flags over those prompts and that store, with
+    --gradient_accumulation_steps ACCUM_N, for ACCUM_STEPS micro-steps and
+    a checkpoint at ACCUM_RESUME: no smoke fallback of kind "data", the
+    LoRA factors unchanged after a micro-step and all changed after an
+    applying step, D's tensors all changed every step, the launches by role
+    phase 9's a micro-step; then a run resumed from checkpoint-ACCUM_RESUME
+    (between two updates) ends with the uninterrupted run's checkpoint,
+    bit for bit. Returns (launches by kernel and shape of the store, of the
+    trainer's runs)."""
+    import numpy as np
+
+    from comat_tpu_torch.tools.gan_gt_generate import main as gan_main
+    from comat_tpu_torch.training.arguments import launcher_argv, parse_args
+    from comat_tpu_torch.training.data import GanLatentStore, load_prompts
+    from comat_tpu_torch.training.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke", "accum")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    prompts = load_prompts(os.path.join(REPO, GAN_GT_CORPUS))[:GAN_GT_PROMPTS]
+    ppath = _write_prompts(os.path.join(work, "prompts.txt"), prompts)
+    store = os.path.join(work, "gan_store")
+    gan_argv = ["--model", "sd_1_5", "--prompt-path", ppath, "--save-path", store,
+                "--batch-size", str(GAN_GT_BATCH), "--num-inference-steps", "50",
+                "--resolution", "512", "--seed", str(TRAINER_SEED), "--allow-smoke",
+                "--device", "cuda"]
+    log("  argv: " + " ".join(gan_argv))
+    reset(kernels)
+    t0 = time.perf_counter()
+    made = gan_main(gan_argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in counts_by_role(fa, cv).items() if n}
+    store_shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    batch_s = made["batch_s"]
+    log("  " + gpu_name_and_power())
+    log(f"  latent store: {made['generated']} prompts in {len(batch_s)} batches of "
+        f"{GAN_GT_BATCH}, {wall:.1f} s in all (build and weights included); seconds a batch "
+        + ", ".join(f"{b:.3f}" for b in batch_s)
+        + f" ({batch_s[-1] / 50:.4f} s a denoising step, the last batch); launches {counts} "
+        f"(predicted {GAN_GT_LAUNCHES})")
+    if counts != GAN_GT_LAUNCHES or made["generated"] != GAN_GT_PROMPTS:
+        raise AssertionError(f"latent store: {made['generated']} prompts, launches {counts}")
+    index = os.path.join(store, "index.jsonl")
+    lat = GanLatentStore(index).batch(prompts)
+    log(f"  store read back: {lat.shape}, std {lat.std():.4f}, finite {np.isfinite(lat).all()}")
+    if lat.shape != (GAN_GT_PROMPTS, 64, 64, 4) or not np.isfinite(lat).all():
+        raise AssertionError(f"bad latents {lat.shape}")
+    again = gan_main(gan_argv + ["--use-cache"])
+    n_lines = sum(1 for line in open(index) if line.strip())
+    if again["generated"] or n_lines != GAN_GT_PROMPTS:
+        raise AssertionError(f"--use-cache generated {again['generated']}, index {n_lines}")
+
+    argv = launcher_argv(os.path.join(REPO, SD15_LAUNCHER))
+    argv[argv.index("--training_prompts") + 1] = ppath
+    argv += ["--gan_gt_path", index, "--gradient_accumulation_steps", str(ACCUM_N),
+             "--max_train_steps", str(ACCUM_STEPS), "--validation_steps", str(ACCUM_RESUME),
+             "--num_validation_images", "0"]
+    out = os.path.join(work, "output")
+    log("  argv: " + " ".join(argv))
+    probe = lambda: counts_by_role(fa, cv)  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30    # by earlier phases
+    reset(kernels)
+    t0 = time.perf_counter()
+    trainer = Trainer(parse_args(argv + ["--output_dir", out]), probe=probe)
+    data_fallbacks = [why for kind, why in trainer.smoke_fallbacks if kind == "data"]
+    # which trained tensors each micro-step changed, G's and D's
+    prev = {"g": _trained(trainer.state.trainable), "d": _trained(trainer.d_state.trainable)}
+    moves, inner = [], trainer.train_step
+
+    def step(state, batch, **kw):
+        state, metrics = inner(state, batch, **kw)
+        moved = []
+        for key, tensors in (("g", state.trainable), ("d", trainer.d_state.trainable)):
+            moved.append(sum(not torch.equal(p.detach(), prev[key][n])
+                             for n, p in tensors.items()))
+            for n, p in tensors.items():
+                prev[key][n].copy_(p.detach())
+        moves.append(tuple(moved))
+        return state, metrics
+
+    trainer.train_step = step
+    trainer.train()
+    trainer.metrics.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    roles = _cli_roles(trainer)
+    n_g, n_d = len(trainer.state.trainable), len(trainer.d_state.trainable)
+    acc_mb = sum(a.numel() * a.element_size()
+                 for a in trainer.state.optimizer.acc.values()) / 2 ** 20
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    for r in rows:
+        kind = "applying" if r["step"] % ACCUM_N == 0 else "micro"
+        log(f"  step {r['step']} ({kind}): loss {r['step_loss']:.4f}, D_loss "
+            f"{r['D_loss']:.4f}, grad_norm {r['grad_norm']:.4e}; s_step {r['s_step']:.3f}, "
+            f"wall {r['sec_per_step']:.3f}, s_optimizer {r['s_optimizer']:.4f} s")
+    micro = [r for r in rows[1:] if r["step"] % ACCUM_N]
+    applying = [r for r in rows[1:] if r["step"] % ACCUM_N == 0]
+    m_micro = _median(micro, ("s_step", "sec_per_step", "s_optimizer"))
+    m_apply = _median(applying, ("s_step", "sec_per_step", "s_optimizer"))
+    log("  " + gpu_name_and_power())
+    log(f"  accumulation {ACCUM_N}: micro-step {m_micro['s_step']:.3f} s on the device "
+        f"({m_micro['sec_per_step']:.3f} s wall, optimizer {m_micro['s_optimizer']:.4f} s; "
+        f"steps {[r['step'] for r in micro]}), applying step {m_apply['s_step']:.3f} s "
+        f"({m_apply['sec_per_step']:.3f} s wall, optimizer {m_apply['s_optimizer']:.4f} s; "
+        f"steps {[r['step'] for r in applying]}); phase 9's step {cli_median['s_step']:.3f} s "
+        f"({cli_median['sec_per_step']:.3f} s wall); peak memory {peak:.2f} GiB, "
+        f"{peak - held:.2f} above the {held:.2f} GiB held before the trainer (phase 9's "
+        f"peak {cli_peak:.2f}; the running mean {acc_mb:.1f} MiB); run {wall:.1f} s")
+    log(f"  tensors changed a micro-step (G of {n_g}, D of {n_d}): {moves}; smoke "
+        f"fallbacks {[kind for kind, _ in trainer.smoke_fallbacks]}")
+    want_moves = [(n_g if (i + 1) % ACCUM_N == 0 else 0, n_d) for i in range(ACCUM_STEPS)]
+    if data_fallbacks or moves != want_moves:
+        raise AssertionError(f"accumulation: moves {moves}, expected {want_moves}; data "
+                             f"fallbacks {data_fallbacks}")
+    want_roles = {role: {k: n * ACCUM_STEPS for k, n in c.items()}
+                  for role, c in CLI_LAUNCHES.items()}
+    log(f"  launches by role, {ACCUM_STEPS} micro-steps: {roles}")
+    if roles != want_roles or len(rows) != ACCUM_STEPS or not all(
+            math.isfinite(r[k]) for r in rows for k in ("step_loss", "G_loss", "D_loss",
+                                                        "grad_norm")):
+        raise AssertionError(f"accumulated trainer: roles {roles} (expected {want_roles}), "
+                             f"rows {rows}")
+    accum_shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    del trainer, prev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res_out = os.path.join(work, "resumed")
+    mid = os.path.join(out, f"checkpoint-{ACCUM_RESUME}")
+    shutil.copytree(mid, os.path.join(res_out, f"checkpoint-{ACCUM_RESUME}"))
+    reset(kernels)
+    resumed = Trainer(parse_args(argv + ["--output_dir", res_out,
+                                         "--resume_from_checkpoint", "latest"]), probe=probe)
+    opt = resumed.state.optimizer
+    log(f"  resumed at micro-step {resumed.global_step}: update count {opt.count}, "
+        f"micro-step counter {opt.mini_step}, running mean of {len(opt.acc)} tensors")
+    if (resumed.global_step, opt.count, opt.mini_step) != (
+            ACCUM_RESUME, ACCUM_RESUME // ACCUM_N, ACCUM_RESUME % ACCUM_N) or not opt.acc:
+        raise AssertionError("the resumed trainer does not hold the accumulation state")
+    resumed.train()
+    resumed.metrics.close()
+    torch.cuda.synchronize()
+    roles = _cli_roles(resumed)
+    if roles != {role: dict(c) for role, c in CLI_LAUNCHES.items()}:
+        raise AssertionError(f"resumed run launched {roles}")
+    a = torch.load(os.path.join(out, f"checkpoint-{ACCUM_STEPS}", "state.pt"),
+                   weights_only=True)
+    b = torch.load(os.path.join(res_out, f"checkpoint-{ACCUM_STEPS}", "state.pt"),
+                   weights_only=True)
+    differ = [f"{key}.{n}" for key in ("trainable", "d_trainable")
+              for n in a[key] if not torch.equal(a[key][n], b[key][n])]
+    for key in ("optimizer", "d_optimizer"):
+        sa, sb = a[key]["adam"]["state"], b[key]["adam"]["state"]
+        differ += [f"{key}.{i}.{m}" for i in sa for m in sa[i] if torch.is_tensor(sa[i][m])
+                   and not torch.equal(sa[i][m].cpu(), sb[i][m].cpu())]
+    differ += [f"acc.{n}" for n in a["optimizer"]["acc"]
+               if not torch.equal(a["optimizer"]["acc"][n], b["optimizer"]["acc"][n])]
+    row = json.loads(open(os.path.join(res_out, "metrics.jsonl")).read().splitlines()[-1])
+    same = (not differ and torch.equal(a["generator"], b["generator"])
+            and a["extra"] == b["extra"] and row["step_loss"] == rows[-1]["step_loss"]
+            and a["optimizer"]["mini_step"] == b["optimizer"]["mini_step"] == 0)
+    log(f"  resumed checkpoint-{ACCUM_STEPS} against the uninterrupted run's: "
+        f"{len(differ)} tensors differ {differ[:3]}; step loss {row['step_loss']!r} "
+        f"({rows[-1]['step_loss']!r}); bit for bit: {same}")
+    if not same:
+        raise AssertionError("the resumed accumulated run does not repeat the uninterrupted one")
+    for kern in kernels:
+        acc = accum_shapes.setdefault(kern.symbol, {})
+        for key, n in kern.launches_by_shape.items():
+            acc[key] = acc.get(key, 0) + n
+    del resumed, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return store_shapes, accum_shapes
+
+
+def phase_evaluate(torch, fa, cv, kernels):
+    """(a) BLIP-VQA at base width (ViT-B/16) in fp32, seeded, card against
+    CPU on 2 images x 3 questions: both answer log-likelihoods and P(yes)
+    within VQA_PARITY_TOL of each one's max abs. (b) `tools.evaluate.main`
+    at 512^2 on the corpus' first EVAL_PROMPTS prompts with a colour word,
+    one batch, --metric both --allow-smoke (seeded SD1.5 with the
+    launcher's seed, captioner and VQA): one row per prompt with its
+    questions, every P(yes) in [0, 1], a finite reward, the launches of
+    one generation and decode. Returns the launches by kernel and shape of
+    (b)."""
+    import numpy as np
+
+    from comat_tpu_torch.config import BLIPConfig
+    from comat_tpu_torch.models.blip_vqa import build_answer_batch, encode_fixed, make_blip_vqa
+    from comat_tpu_torch.text.tokenizer import HashTokenizer
+    from comat_tpu_torch.tools.evaluate import main as eval_main
+    from comat_tpu_torch.training.data import load_prompts
+
+    cfg = dataclasses.replace(BLIPConfig.base(), dtype=torch.float32)
+    t0 = time.perf_counter()
+    cpu = make_blip_vqa(cfg, "cpu", seed=SEED + 11)
+    card = make_blip_vqa(cfg, "cuda", params=cpu.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 12)
+    H = cfg.image_size
+    pix = torch.randn(2, H, H, 3, generator=gen).repeat_interleave(3, dim=0)
+    tok = HashTokenizer(cfg.vocab_size)
+    questions = ["red cube?", "blue sphere?", "a red cube on a blue sphere?",
+                 "two cats?", "green umbrella?", "cats?"]
+    q = [torch.from_numpy(a) for a in encode_fixed(tok, questions, 16)]
+    ans = [torch.from_numpy(a) for word in ("yes", "no") for a in build_answer_batch(
+        tok, [word], len(questions), 8, bos_token_id=cfg.bos_token_id)]
+    with torch.no_grad():
+        want = cpu.answer_logliks(pix, *q, *ans)
+        t1 = time.perf_counter()
+        got = card.answer_logliks(pix.cuda(), *(a.cuda() for a in q + ans))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    outs = {"ll_yes": (got[0], want[0]), "ll_no": (got[1], want[1]),
+            "p_yes": (torch.sigmoid(got[0] - got[1]), torch.sigmoid(want[0] - want[1]))}
+    errs = {k: float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for k, (g, w) in outs.items()}
+    log(f"  BLIP-VQA base fp32 ({sum(p.numel() for p in cpu.parameters()) / 1e6:.1f} M "
+        f"parameters), 2 images x 3 questions: CPU {t1 - t0:.1f} s with the build, card "
+        f"{t2 - t1:.3f} s; P(yes) {[round(float(p), 4) for p in outs['p_yes'][1]]}; "
+        f"|card - CPU| / max abs: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if not all(math.isfinite(v) and v <= VQA_PARITY_TOL for v in errs.values()):
+        raise AssertionError(f"BLIP-VQA card against CPU: {errs}")
+    del cpu, card
+
+    work = os.path.join(REPO, "build", "chip_smoke", "evaluate")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    corpus = load_prompts(os.path.join(REPO, GAN_GT_CORPUS))
+    prompts = [p for p in corpus if any(c in p.lower().split() for c in COLOURS)][:EVAL_PROMPTS]
+    argv = ["--prompt-path", _write_prompts(os.path.join(work, "prompts.txt"), prompts),
+            "--out", os.path.join(work, "results.jsonl"), "--batch-size", str(EVAL_PROMPTS),
+            "--metric", "both", "--allow-smoke", "--seed", str(TRAINER_SEED),
+            "--resolution", "512", "--num-inference-steps", "50", "--device", "cuda"]
+    log("  argv: " + " ".join(argv))
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset(kernels)
+    t0 = time.perf_counter()
+    res = eval_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in counts_by_role(fa, cv).items() if n}
+    shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    sec = res["seconds"]
+    log("  " + gpu_name_and_power())
+    log(f"  evaluator: {len(res['rows'])} rows, summary {res['summary']}; seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sec.items())
+        + f" ({sec['generate'] / 50:.4f} s a denoising step); {wall:.1f} s in all with the "
+        f"three models' build; launches {counts} (predicted {EVAL_LAUNCHES})")
+    rows = res["rows"]
+    if (len(rows) != EVAL_PROMPTS or counts != EVAL_LAUNCHES
+            or not all(r["bvqa_questions"] and all(0.0 <= p <= 1.0 for p in r["bvqa_p_yes"])
+                       and math.isfinite(r["blip_reward"]) for r in rows)
+            or not np.isfinite(res["summary"]["mean_bvqa_binding"])):
+        raise AssertionError(f"evaluator: rows {rows}, launches {counts}")
+    return shapes
+
+
 def main() -> int:
     import torch
 
@@ -2039,11 +2360,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    starts = []     # (phase, start time, GiB allocated when it starts)
+
+    def header(text: str) -> None:
+        starts.append((len(starts) + 1, time.perf_counter(),
+                       torch.cuda.memory_allocated() / 2 ** 30))
+        log(text)
+
     log(gpu_name_and_power())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    log("[1/13] build")
+    header("[1/15] build")
     t0 = time.perf_counter()
     paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
@@ -2056,54 +2384,67 @@ def main() -> int:
     phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    log("[2/13] kernels against their plain versions")
+    header("[2/15] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/13] generation: SD1.5 fp32 256^2 card vs CPU")
+    header("[3/15] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    log("[4/13] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
+    header("[4/15] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    log("[5/13] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    header("[5/15] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
     gen = phase_main(torch, kernels)
     gen_shapes = gen[0]
 
-    log("[6/13] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    header("[6/15] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
     train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    log("[7/13] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    header("[7/15] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
     tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
 
-    log("[8/13] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
+    header("[8/15] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
     full_shapes, full_median, full_peak = phase_train_full(torch, fa, cv, kernels, pipe,
                                                            blip, batch)
     del pipe, blip, batch
 
-    log("[9/13] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
+    header("[9/15] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
         f"512^2, batch 4, {CLI_STEPS} steps, then a run resumed at step {CLI_RESUME}")
     cli_shapes, encode_shapes, cli_median, cli_peak, cli = phase_trainer_cli(
         torch, fa, cv, kernels, full_median, full_peak)
 
-    log("[10/13] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
+    header("[10/15] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
         "then bf16 at batch 4")
     phase_gsam(torch)
 
-    log("[11/13] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
+    header("[11/15] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
         "fp32 card vs CPU")
     phase_sdxl_parity(torch, fa, cv, kernels)
 
-    log("[12/13] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
+    header("[12/15] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
         f"Grounded-SAM, remat), 512^2, batch {SDXL_BATCH}, {SDXL_STEPS} steps")
     sdxl_shapes, sdxl_encode_shapes, _, _ = phase_sdxl_trainer(torch, fa, cv, kernels,
                                                                cli_median, cli_peak)
 
-    log("[13/13] snapshots: SD1.5 and BLIP-large fp32 in a hub cache, the generator and "
+    header("[13/15] snapshots: SD1.5 and BLIP-large fp32 in a hub cache, the generator and "
         f"the trainer ({SNAPSHOT_STEPS} steps) from them; SDXL's fp16 variant files")
     snap_gen_shapes, snap_cli_shapes = phase_snapshots(torch, fa, cv, kernels, gen, cli)
     del gen, cli
+
+    header(f"[14/15] latent store: tools.gan_gt_generate on {GAN_GT_PROMPTS} prompts at 512^2, "
+        f"then the trainer on it with --gradient_accumulation_steps {ACCUM_N}, "
+        f"{ACCUM_STEPS} micro-steps and a resume at {ACCUM_RESUME}")
+    store_shapes, accum_shapes = phase_gan_store_accum(torch, fa, cv, kernels, cli_median,
+                                                       cli_peak)
+
+    header("[15/15] evaluator: BLIP-VQA base fp32 card vs CPU, then tools.evaluate on "
+        f"{EVAL_PROMPTS} prompts at 512^2 (BLIP reward and BLIP-VQA binding)")
+    eval_shapes = phase_evaluate(torch, fa, cv, kernels)
+    ends = [t for _, t, _ in starts[1:]] + [time.perf_counter()]
+    log("  seconds a phase (GiB allocated at its start): " + ", ".join(
+        f"{n} {end - t:.1f} ({held:.2f})" for (n, t, held), end in zip(starts, ends)))
 
     # launches: those of the driven paths, each counted from 0 just before
     # it: generation, the reduced recipe's train step, the same with the
@@ -2111,14 +2452,16 @@ def main() -> int:
     # (phase 4's card run), the full recipe's step, the latent store's
     # encoding and the trainer CLI's two runs, SDXL's latent store and
     # its trainer CLI's run, the generation and the trainer's run from the
-    # SD1.5 snapshot
+    # SD1.5 snapshot, the latent tool's store, the accumulated trainer's two
+    # runs and the evaluator
     paths = {"generate": gen_shapes, "train": train_shapes,
              "train_tune_vae_bf16": tune_bf16_shapes,
              "train_tune_vae": {cv.DW_KERNEL.symbol: tune_vae_shapes[cv.DW_KERNEL.symbol]},
              "train_full": full_shapes, "gan_store_encode": encode_shapes,
              "trainer_cli": cli_shapes, "sdxl_gan_store_encode": sdxl_encode_shapes,
              "sdxl_trainer_cli": sdxl_shapes, "snapshot_generate": snap_gen_shapes,
-             "snapshot_trainer_cli": snap_cli_shapes}
+             "snapshot_trainer_cli": snap_cli_shapes, "gan_gt_generate": store_shapes,
+             "accum_trainer_cli": accum_shapes, "evaluate": eval_shapes}
     for e in entries:
         key = tuple(e.pop("key"))
         for path, shapes in paths.items():

@@ -163,7 +163,8 @@ class VAEConfig:
 class BLIPConfig:
     """BLIP image captioner, the frozen concept-matching reward model:
     Salesforce/blip-image-captioning-large, a ViT-L/16 vision encoder at
-    384x384 and a BERT-style text decoder with cross-attention."""
+    384x384 and a BERT-style text decoder with cross-attention (`large`);
+    `base` is BLIP-VQA's ViT-B/16 geometry."""
 
     # vision
     image_size: int = 384
@@ -190,6 +191,20 @@ class BLIPConfig:
     @staticmethod
     def large() -> "BLIPConfig":
         return BLIPConfig()
+
+    @staticmethod
+    def base() -> "BLIPConfig":
+        """The ViT-B/16 vision tower of Salesforce/blip-vqa-base (768 wide,
+        12 layers, 12 heads, 3072 inner); the text towers are BERT-base as
+        in the captioner. The BLIP-VQA binding scorer uses it: the
+        snapshot's 768-wide vision weights do not fit the captioner's
+        ViT-L geometry."""
+        return BLIPConfig(
+            vision_hidden_size=768,
+            vision_layers=12,
+            vision_heads=12,
+            vision_intermediate_size=3072,
+        )
 
     @staticmethod
     def tiny(vocab_size: int = 1000) -> "BLIPConfig":

@@ -1,7 +1,9 @@
 """Concept-matching reward: the frozen BLIP captioner's cross-entropy.
 
 Port of comat_tpu/losses/caption_reward.py (`blip_preprocess`,
-`crop_jitter`, `build_caption_batch`, `blip_caption_reward`). Images are
+`crop_jitter`, `build_caption_batch`, `blip_caption_reward`);
+`blip_caption_rewards` is the per-image reward JAX's evaluator takes by
+`vmap` of the scalar one. Images are
 resized to 384x384 bicubic with antialiasing and CLIP-normalised, the
 caption is "a photography of " + prompt.lower(), the labels mask padding
 and the prompt prefix with -100, and the reward is minus the caption loss.
@@ -98,3 +100,21 @@ def blip_caption_reward(
     loss = blip.caption_loss(pixel_values, as_ids(input_ids),
                              as_ids(attention_mask), as_ids(labels))
     return -loss
+
+
+def blip_caption_rewards(
+    blip, image01: torch.Tensor, input_ids, attention_mask, labels,
+) -> torch.Tensor:
+    """(B,) rewards, one per image, each what `blip_caption_reward` gives
+    for that image and its caption row alone (the mean over the row's
+    scored tokens), from one batched forward."""
+    device = image01.device
+
+    def as_ids(a):
+        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
+                               device=device).long()
+
+    pixel_values = blip_preprocess(image01, blip.cfg.image_size)
+    per_tok, valid = blip.caption_token_losses(pixel_values, as_ids(input_ids),
+                                               as_ids(attention_mask), as_ids(labels))
+    return -(per_tok.sum(-1) / valid.sum(-1).clamp_min(1))

@@ -178,18 +178,26 @@ class _BertIntermediate(nn.Module):
 
 
 class BlipTextLayer(nn.Module):
-    def __init__(self, cfg: BLIPConfig, device=None):
+    """A BERT layer: self-attention, cross-attention to `enc`, feed-forward,
+    each post-LN. The cross-attention's key and value read `encoder_width`
+    (HF's `encoder_hidden_size`): the vision width by default, the text
+    width where the layer attends to encoded text (BLIP-VQA's answer
+    decoder)."""
+
+    def __init__(self, cfg: BLIPConfig, device=None, encoder_width: Optional[int] = None):
         super().__init__()
         D, dt = cfg.text_hidden_size, cfg.dtype
+        kv = cfg.vision_hidden_size if encoder_width is None else encoder_width
         self.attention = _BertAttention(D, D, cfg.text_heads, dt, device)
-        self.crossattention = _BertAttention(D, cfg.vision_hidden_size,
-                                             cfg.text_heads, dt, device)
+        self.crossattention = _BertAttention(D, kv, cfg.text_heads, dt, device)
         self.intermediate = _BertIntermediate(D, cfg.text_intermediate_size, dt, device)
         self.output = _BertOutput(cfg.text_intermediate_size, D, dt, device)
 
-    def forward(self, x, mask, enc):
+    def forward(self, x, mask, enc, cross_mask: Optional[torch.Tensor] = None):
+        """`mask` (B, 1, S, S) and `cross_mask` (B, 1, S|1, Sk) bool keep
+        True entries; no `cross_mask` attends to every key of `enc`."""
         x = self.attention(x, x, mask)
-        x = self.crossattention(x, enc.to(x.dtype))
+        x = self.crossattention(x, enc.to(x.dtype), cross_mask)
         return self.output(self.intermediate(x), x)
 
 
@@ -209,17 +217,19 @@ class _BertEmbeddings(nn.Module):
 
 
 class _BertEncoder(nn.Module):
-    def __init__(self, cfg: BLIPConfig, device=None):
+    def __init__(self, cfg: BLIPConfig, device=None, encoder_width: Optional[int] = None):
         super().__init__()
-        self.layer = nn.ModuleList([BlipTextLayer(cfg, device)
+        self.layer = nn.ModuleList([BlipTextLayer(cfg, device, encoder_width)
                                     for _ in range(cfg.text_layers)])
 
 
 class _Bert(nn.Module):
-    def __init__(self, cfg: BLIPConfig, device=None):
+    """HF's `BlipTextModel` without its pooler: embeddings and layers."""
+
+    def __init__(self, cfg: BLIPConfig, device=None, encoder_width: Optional[int] = None):
         super().__init__()
         self.embeddings = _BertEmbeddings(cfg, device)
-        self.encoder = _BertEncoder(cfg, device)
+        self.encoder = _BertEncoder(cfg, device, encoder_width)
 
 
 class _PredictionTransform(nn.Module):
@@ -256,20 +266,22 @@ class _Cls(nn.Module):
 
 
 class BlipTextDecoder(nn.Module):
-    def __init__(self, cfg: BLIPConfig, device=None):
+    def __init__(self, cfg: BLIPConfig, device=None, encoder_width: Optional[int] = None):
         super().__init__()
-        self.bert = _Bert(cfg, device)
+        self.bert = _Bert(cfg, device, encoder_width)
         self.cls = _Cls(cfg, device)
 
-    def forward(self, input_ids, attention_mask, image_embeds) -> torch.Tensor:
-        """(B, S) ids and 1/0 mask, (B, Sv, Dv) image states -> (B, S, V)
-        fp32 logits."""
+    def forward(self, input_ids, attention_mask, image_embeds,
+                cross_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S) ids and 1/0 mask, (B, Sv, Dv) encoder states (and their
+        key mask `cross_mask`, (B, 1, 1, Sv) bool) -> (B, S, V) fp32
+        logits."""
         S = input_ids.shape[1]
         x = self.bert.embeddings(input_ids)
         causal = torch.ones(S, S, dtype=torch.bool, device=x.device).tril()
         mask = causal[None, None] & attention_mask.bool()[:, None, None, :]
         for layer in self.bert.encoder.layer:
-            x = layer(x, mask, image_embeds)
+            x = layer(x, mask, image_embeds, cross_mask)
         return self.cls.predictions(x)
 
 
@@ -282,6 +294,20 @@ class BLIPCaptioner(nn.Module):
         self.vision_model = BlipVisionModel(cfg, device)
         self.text_decoder = BlipTextDecoder(cfg, device)
 
+    def caption_token_losses(self, pixel_values, input_ids, attention_mask, labels):
+        """(per-token loss (B, S - 1), 0 where ignored; valid (B, S - 1)
+        bool): the shifted cross-entropy with the config's label
+        smoothing."""
+        image_embeds = self.vision_model(pixel_values)
+        logits = self.text_decoder(input_ids, attention_mask, image_embeds)[:, :-1]
+        labels = labels[:, 1:].long()
+        valid = labels != IGNORE_INDEX
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, torch.where(valid, labels, 0)[..., None])[..., 0]
+        eps = self.cfg.label_smoothing
+        per_tok = (1.0 - eps) * nll - eps * logp.mean(-1) if eps else nll
+        return torch.where(valid, per_tok, 0.0), valid
+
     def caption_loss(
         self,
         pixel_values: torch.Tensor,    # (B, H, W, 3), CLIP-normalised
@@ -291,15 +317,8 @@ class BLIPCaptioner(nn.Module):
     ) -> torch.Tensor:
         """Shifted cross-entropy, label smoothing from the config, mean
         over the tokens that are not ignored."""
-        image_embeds = self.vision_model(pixel_values)
-        logits = self.text_decoder(input_ids, attention_mask, image_embeds)[:, :-1]
-        labels = labels[:, 1:].long()
-        valid = labels != IGNORE_INDEX
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -logp.gather(-1, torch.where(valid, labels, 0)[..., None])[..., 0]
-        eps = self.cfg.label_smoothing
-        per_tok = (1.0 - eps) * nll - eps * logp.mean(-1) if eps else nll
-        per_tok = torch.where(valid, per_tok, 0.0)
+        per_tok, valid = self.caption_token_losses(pixel_values, input_ids,
+                                                   attention_mask, labels)
         return per_tok.sum() / valid.sum().clamp_min(1)
 
     def forward(self, pixel_values, input_ids, attention_mask, labels):

@@ -1,12 +1,13 @@
 """Diffusers and transformers snapshots into the port's modules.
 
 The port's counterpart of comat_tpu/models/hf_import.py (`load_sd_params`,
-`load_unet_params`, `load_blip_params`, `load_lora_safetensors`,
-`alias_diffusers_lora_keys`, `_load_safetensors_dir`, `_alias_tied_blip`),
-read from it and not imported. The port's modules carry diffusers' and
-transformers' state-dict names, so a snapshot's tensors need only a few
-renames and reshapes (`unet_from_diffusers`, `vae_from_diffusers`,
-`clip_from_hf`, `blip_from_hf`); `load_into` then copies them into a
+`load_unet_params`, `load_blip_params`, `load_blip_vqa_params`,
+`load_lora_safetensors`, `alias_diffusers_lora_keys`,
+`_load_safetensors_dir`, `_alias_tied_blip`), read from it and not
+imported. The port's modules carry diffusers' and transformers'
+state-dict names, so a snapshot's tensors need only a few renames and
+reshapes (`unet_from_diffusers`, `vae_from_diffusers`, `clip_from_hf`,
+`blip_from_hf`, `blip_vqa_from_hf`); `load_into` then copies them into a
 module in place, tensor by tensor, from the file's memory map to the
 parameter's device and dtype. It never replaces a `Parameter` object, so
 what shares a tower's tensors (a discriminator's base, `share_base_unet`)
@@ -176,7 +177,7 @@ def clip_from_hf(tensors: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
 def blip_from_hf(tensors: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """A transformers `BlipForConditionalGeneration` state dict (or the
     tensors of its safetensors snapshot) -> the port captioner's state
-    dict. The names are the same; HF ties the LM head's decoder weight to
+    dict; a `BlipForQuestionAnswering`'s -> the port `BLIPVQA`'s. The names are the same; HF ties the LM head's decoder weight to
     the word embeddings and its decoder bias to `predictions.bias`, and a
     safetensors snapshot drops the tied weight, so it is restored from the
     embeddings (the port's copy of `hf_import._alias_tied_blip`). Tensors
@@ -189,6 +190,12 @@ def blip_from_hf(tensors: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         out[head + "decoder.weight"] = out[
             "text_decoder.bert.embeddings.word_embeddings.weight"]
     return out
+
+
+# transformers' `BlipForQuestionAnswering` names are the port `BLIPVQA`'s
+# too (JAX's `_blip_vqa_hf_name` :403 maps its own), and its answer
+# decoder ties its LM head as the captioner's does
+blip_vqa_from_hf = blip_from_hf
 
 
 _TOWER_NAMES = {"unet": unet_from_diffusers, "vae": vae_from_diffusers,
@@ -325,6 +332,14 @@ def load_blip_state(snapshot_dir: str, blip: nn.Module) -> LoadReport:
     captioner in place, the tied LM head restored (the counterpart of
     `hf_import.load_blip_params` :453)."""
     return load_into(blip, blip_from_hf(load_safetensors_dir(snapshot_dir)))
+
+
+def load_blip_vqa_state(snapshot_dir: str, vqa: nn.Module) -> LoadReport:
+    """A transformers BlipForQuestionAnswering snapshot (e.g.
+    Salesforce/blip-vqa-base) into the port's `BLIPVQA` in place, the
+    tied LM head restored (the counterpart of
+    `hf_import.load_blip_vqa_params` :438)."""
+    return load_into(vqa, blip_vqa_from_hf(load_safetensors_dir(snapshot_dir)))
 
 
 def load_lora_safetensors(path: str, unet: nn.Module) -> LoadReport:

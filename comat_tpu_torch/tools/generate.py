@@ -26,7 +26,7 @@ import os
 import struct
 import time
 import zlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 
 def parse_args(argv=None):
@@ -113,6 +113,31 @@ def _load_weights(args, pipe, lora_path) -> None:
               f"{sum(r.copy_s for r in reports):.3f} s")
 
 
+def lora_checkpoint(checkpoint: Optional[str]) -> Tuple[Optional[str], int]:
+    """(the LoRA file, its rank) of --checkpoint: the trainer's checkpoint
+    folder (its pytorch_lora_weights.safetensors) or such a file; (None,
+    0) without one. A file without UNet factors raises."""
+    if not checkpoint:
+        return None, 0
+    from comat_tpu_torch.models.hf_import import lora_rank
+
+    path = (os.path.join(checkpoint, "pytorch_lora_weights.safetensors")
+            if os.path.isdir(checkpoint) else checkpoint)
+    rank = lora_rank(path)
+    if not rank:
+        raise ValueError(f"--checkpoint {path}: no UNet LoRA factors")
+    return path, rank
+
+
+def smoke_gate(allow_smoke: bool, why: str) -> None:
+    """Refuse a fidelity-degrading fallback (seeded weights, a hash
+    tokenizer) unless --allow-smoke, which prints it instead."""
+    if not allow_smoke:
+        raise SystemExit(f"refusing to continue: {why}. Pass --allow-smoke to run "
+                         "anyway (smoke testing only).")
+    print(f"SMOKE MODE: {why}")
+
+
 def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
     """Generate, write `<out-dir>/NNN.png`, and return (images (B, H, W, 3)
     in [0, 1], {"sample_s", "decode_s"} wall seconds)."""
@@ -120,19 +145,12 @@ def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
     import numpy as np
     import torch
 
-    from comat_tpu_torch.models.hf_import import lora_rank
     from comat_tpu_torch.models.pipeline import (
         DiffusionPipeline, make_pipeline_config,
     )
     from comat_tpu_torch.text.tokenizer import HashTokenizer, load_clip_tokenizer
 
-    lora_path, rank = None, 0
-    if args.checkpoint:
-        lora_path = (os.path.join(args.checkpoint, "pytorch_lora_weights.safetensors")
-                     if os.path.isdir(args.checkpoint) else args.checkpoint)
-        rank = lora_rank(lora_path)
-        if not rank:
-            raise ValueError(f"--checkpoint {lora_path}: no UNet LoRA factors")
+    lora_path, rank = lora_checkpoint(args.checkpoint)
     pcfg = make_pipeline_config(
         args.model, lora_rank=rank, resolution=args.resolution, tiny=args.tiny,
     )

@@ -17,7 +17,6 @@ import shlex
 from typing import List
 
 _SURFACES = "ROADMAP Queue 1: trainable surfaces and the optimizer"
-_DDP = "ROADMAP Queue 1: torch DDP with gradient accumulation"
 
 
 def _check_ported(args) -> None:
@@ -32,7 +31,6 @@ def _check_ported(args) -> None:
          "ROADMAP Queue 1: opt-in extras (v-prediction)"),
         ("--mesh_model_axis", args.mesh_model_axis > 1,
          "ROADMAP Queue 1: opt-in extras (parallel/tp.py)"),
-        ("--gradient_accumulation_steps", args.gradient_accumulation_steps > 1, _DDP),
         # the pooled embed enters SDXL's replay as a constant
         ("--tune_text_encoder with an SDXL model",
          args.tune_text_encoder and args.pretrain_model_name.startswith("sdxl"),

@@ -7,9 +7,10 @@ sorts them by step, and `checkpoints_total_limit` pruning of the oldest.
 A checkpoint holds, beside `metadata.json` ({"step": n}), one `state.pt`
 (torch.save): the generator's and the discriminator's trainable tensors,
 the optimizers' state (the fp32 masters of bf16 tensors, AdamW's moments
-and steps, the update count), the `torch.Generator` state the step draws
-come from (the counterpart of the JAX rng key) and what the trainer adds
-(`extra`). Single process: no barriers.
+and steps, the update count and, under gradient accumulation, the running
+mean of the gradients and the micro-step counter), the `torch.Generator`
+state the step draws come from (the counterpart of the JAX rng key) and
+what the trainer adds (`extra`). Single process: no barriers.
 
 `export_lora_safetensors` writes `pytorch_lora_weights.safetensors` with
 the reference's keys and orientation (`unet.<module>.lora.{down,up}.weight`,

@@ -7,7 +7,12 @@ stream `<output_dir>/metrics.jsonl` keyed as the reference logs
 loss, reward_norm; training_script.py:667-706), validation images as PNG
 files under `<output_dir>/validation_images/`, and a wall-clock step
 timer. The PNGs are written with the standard library (`write_png`); a
-failed write raises. One process, so no rank gating; no tensorboard.
+failed write raises. With a logging dir (the trainer's --report_to
+tensorboard, its default) every scalar and the validation images also go
+to a TensorBoard log under `<output_dir>/<logging_dir>`, through
+`torch.utils.tensorboard`, as JAX writes them; where that writer cannot be
+made (no tensorboard package), one warning names the reason and
+metrics.jsonl is kept. One process, so no rank gating.
 """
 
 from __future__ import annotations
@@ -39,29 +44,50 @@ def set_logger(output_dir: Optional[str] = None) -> logging.Logger:
 
 
 class MetricsWriter:
-    """metrics.jsonl (appended, one record per step) and PNG images."""
+    """metrics.jsonl (appended, one record per step) and PNG images; with
+    `logging_dir`, a TensorBoard log of the same scalars (tags the metric
+    names) and images."""
 
-    def __init__(self, output_dir: str):
+    def __init__(self, output_dir: str, logging_dir: Optional[str] = None):
         os.makedirs(output_dir, exist_ok=True)
         self.f = open(os.path.join(output_dir, "metrics.jsonl"), "a")
         self.img_dir = os.path.join(output_dir, "validation_images")
+        self.tb = None
+        if logging_dir is not None:
+            tb_dir = os.path.join(output_dir, logging_dir)
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self.tb = SummaryWriter(tb_dir)
+            except Exception as e:      # e.g. no tensorboard package
+                logging.getLogger("comat_tpu_torch").warning(
+                    "no TensorBoard log at %s (%s: %s); metrics go to metrics.jsonl only",
+                    tb_dir, type(e).__name__, e)
 
     def log(self, metrics: Dict[str, float], step: int) -> None:
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in metrics.items()})
         self.f.write(json.dumps(rec) + "\n")
         self.f.flush()
+        if self.tb is not None:
+            for k, v in metrics.items():
+                self.tb.add_scalar(k, float(v), step)
 
     def log_images(self, tag: str, images, step: int) -> None:
         """NHWC float [0, 1] images -> `<tag>_<step>_<i>.png` (the
-        validation grids of training_script.py:485-489)."""
+        validation grids of training_script.py:485-489), and to the
+        TensorBoard log."""
         os.makedirs(self.img_dir, exist_ok=True)
-        arr = (np.clip(np.asarray(images, np.float32), 0, 1) * 255).astype(np.uint8)
-        for i, im in enumerate(arr):
+        arr = np.clip(np.asarray(images, np.float32), 0, 1)
+        if self.tb is not None:
+            self.tb.add_images(tag, arr.transpose(0, 3, 1, 2), step)
+        for i, im in enumerate((arr * 255).astype(np.uint8)):
             write_png(os.path.join(self.img_dir, f"{tag}_{step}_{i}.png"), im)
 
     def close(self) -> None:
         self.f.close()
+        if self.tb is not None:
+            self.tb.close()
 
 
 class StepTimer:

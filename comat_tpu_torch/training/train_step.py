@@ -4,9 +4,12 @@ GAN and attribute concentration.
 Port of comat_tpu/training/train_step.py (`TrainConfig`, `DiscState`,
 `partition_params`, `partition_disc_params`, `make_optimizer`,
 `make_d_optimizer`, `init_disc_state`, `sample_trained_idx`,
-`make_loss_fn`, `make_train_step`, `make_presample`) without 8-bit Adam, the int8 pass 1
-or gradient accumulation: each of those raises `NotImplementedError`
-naming its ROADMAP item. One step: encode the prompts, pass 1 (50
+`make_loss_fn`, `make_train_step`, `make_presample`) without 8-bit Adam
+or the int8 pass 1: each of those raises `NotImplementedError` naming its
+ROADMAP item. `gradient_accumulation_steps` N > 1 accumulates the
+generator's gradients in its optimizer and applies their mean every N-th
+step, as JAX's `optax.MultiSteps` does (`ClippedAdamW`); D updates every
+step. One step: encode the prompts, pass 1 (50
 no-grad CFG UNet calls with LoRA fused; unfused under
 `gradient_checkpointing`, which also checkpoints the UNet's blocks in the
 replay's recompute and the decoder's resnet blocks), pass 2 (the
@@ -103,10 +106,6 @@ def _check_ported(cfg: TrainConfig) -> None:
     for flag, item in _NOT_PORTED:
         if getattr(cfg, flag):
             raise NotImplementedError(f"TrainConfig.{flag}: not ported yet, {item}")
-    if cfg.gradient_accumulation_steps > 1:
-        raise NotImplementedError(
-            "gradient_accumulation_steps > 1: not ported yet, ROADMAP Queue 1: "
-            "torch DDP with gradient accumulation")
 
 
 def partition_params(
@@ -165,6 +164,15 @@ class ClippedAdamW:
     takes it times textenc_lr / learning_rate, as JAX's `make_optimizer`
     does. Without it the learning rates are constant.
 
+    `cfg.gradient_accumulation_steps` N > 1 is JAX's
+    `optax.MultiSteps(chain(clip, adamw), every_k_schedule=N)`: each step
+    folds its fp32 gradients into the running mean `acc` (acc += (g -
+    acc) / (k + 1) at micro-step k) and leaves the tensors as they are
+    (no weight decay either); the N-th clips the mean, applies AdamW and
+    zeroes `acc`. `count`, the schedule's argument and AdamW's bias
+    correction advance only on applying steps, as MultiSteps' inner state
+    does; `mini_step` counts the micro-steps since the last one.
+
     The clip is written as optax writes it: gradients are left as they are
     when their global norm is below `max_norm`, else divided by the norm
     and multiplied by `max_norm` (no epsilon, unlike
@@ -181,6 +189,9 @@ class ClippedAdamW:
         self.max_norm = cfg.max_grad_norm
         self.lr_schedule = lr_schedule
         self.count = 0
+        self.every = max(1, cfg.gradient_accumulation_steps)
+        self.mini_step = 0
+        self.acc: Dict[str, torch.Tensor] = {}
         initial_masters = initial_masters or {}
         self.masters: Dict[str, torch.Tensor] = {}
         with torch.no_grad():
@@ -218,9 +229,11 @@ class ClippedAdamW:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """Clip and apply the gradients in `.grad`; returns their global
-        norm before the clip (a 0-dim fp32 tensor). The working copies'
-        own `.grad` are left as the backward wrote them."""
+        """Clip and apply the gradients in `.grad` (under accumulation,
+        fold them into the mean and apply that on every N-th call); returns
+        the global norm of the gradients in `.grad` (a 0-dim fp32 tensor),
+        before any clip. The working copies' own `.grad` are left as the
+        backward wrote them."""
         for name, p in self.params.items():
             master = self.masters[name]
             if master is not p and p.grad is not None:
@@ -230,9 +243,27 @@ class ClippedAdamW:
                 master.grad = torch.zeros_like(master)
         grads = [m.grad for m in self.masters.values()]
         norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
-        if float(norm) >= self.max_norm:
+        if self.every > 1:
+            k = self.mini_step
+            for name, m in self.masters.items():
+                acc = self.acc.get(name)
+                if acc is None:
+                    acc = self.acc[name] = torch.zeros_like(m.grad)
+                acc.add_((m.grad - acc) / (k + 1))
+            if k < self.every - 1:
+                self.mini_step += 1
+                return norm
+            self.mini_step = 0
+            for name, m in self.masters.items():
+                m.grad = self.acc[name].clone()
+                self.acc[name].zero_()
+            grads = [m.grad for m in self.masters.values()]
+            clip_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        else:
+            clip_norm = norm
+        if float(clip_norm) >= self.max_norm:
             for g in grads:
-                g.div_(norm).mul_(self.max_norm)
+                g.div_(clip_norm).mul_(self.max_norm)
         if self.lr_schedule is not None:
             lr = float(self.lr_schedule(self.count))
             for group, ratio in zip(self.adam.param_groups, self._ratios):
@@ -246,10 +277,15 @@ class ClippedAdamW:
 
     def state_dict(self) -> Dict[str, object]:
         """The update count, the fp32 masters of bf16 tensors and AdamW's
-        state (moments and steps), for a checkpoint."""
-        return {"count": self.count, "adam": self.adam.state_dict(),
-                "masters": {n: m.detach() for n, m in self.masters.items()
-                            if m is not self.params[n]}}
+        state (moments and steps), for a checkpoint; under accumulation
+        also the micro-step counter and the running mean."""
+        state = {"count": self.count, "adam": self.adam.state_dict(),
+                 "masters": {n: m.detach() for n, m in self.masters.items()
+                             if m is not self.params[n]}}
+        if self.every > 1:
+            state["mini_step"] = self.mini_step
+            state["acc"] = {n: a.detach() for n, a in self.acc.items()}
+        return state
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, object]) -> None:
@@ -260,6 +296,9 @@ class ClippedAdamW:
             self.masters[n].copy_(m)
             self.params[n].copy_(self.masters[n])
         self.adam.load_state_dict(state["adam"])
+        self.mini_step = int(state.get("mini_step", 0))
+        self.acc = {n: a.detach().to(self.masters[n].device, torch.float32, copy=True)
+                    for n, a in state.get("acc", {}).items()}
 
 
 def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
@@ -288,10 +327,11 @@ def make_d_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
     """D's optimizer (defaults: scripts/sd15.sh's --learning_rate_D 2e-5,
     --adam_beta1_D 0, --adam_beta2_D 0.999, --max_grad_norm_D 1): a
     global-norm clip and AdamW at a constant rate, with the generator's
-    eps and weight decay."""
+    eps and weight decay; never accumulated (D updates every step, as in
+    JAX)."""
     return ClippedAdamW(params, dataclasses.replace(
         cfg, learning_rate=lr, adam_b1=b1, adam_b2=b2, max_grad_norm=max_grad_norm,
-        textenc_lr=None))
+        textenc_lr=None, gradient_accumulation_steps=1))
 
 
 class DiscState(NamedTuple):

@@ -8,7 +8,15 @@ concentration. `train()` runs the loop: validation and a checkpoint at
 step 0, one `make_train_step` step per batch with its draws from one
 `torch.Generator` seeded by --seed, metrics one step late, checkpoints
 and validation every --validation_steps and at the end, and a checkpoint
-before exiting on SIGTERM/SIGINT. With an image-dependent segmenter
+before exiting on SIGTERM/SIGINT. Under --gradient_accumulation_steps N
+the generator's update applies on every N-th step (`ClippedAdamW`, JAX's
+`optax.MultiSteps`) while D updates every step; `global_step`,
+--max_train_steps, --validation_steps and the checkpoints count steps
+(micro-steps), as JAX's trainer counts them, and a checkpoint holds the
+running mean of the gradients, so a resume between two updates ends as
+the uninterrupted run. Metrics go to metrics.jsonl and, with --report_to
+tensorboard (the default), to a TensorBoard log in
+`<output_dir>/<logging_dir>`. With an image-dependent segmenter
 (--seg_model gsam: Grounded-SAM, seeded unless its checkpoints are given)
 each step is split as in JAX: the no-grad presample, the segmentation of
 its images on the device, then the step replaying the presample's tables.
@@ -317,7 +325,9 @@ class Trainer:
         if self.seg_holder is not None and self.seg_holder.image_dependent:
             self.presample = make_presample(self.pipeline, self.tcfg)
 
-        self.metrics = MetricsWriter(args.output_dir)
+        self.metrics = MetricsWriter(
+            args.output_dir,
+            args.logging_dir if args.report_to in ("tensorboard", "all") else None)
         self.timer = StepTimer()
         self._pending_metrics = None
         self._profiler = None
@@ -505,8 +515,9 @@ class Trainer:
         args = self.args
         steps_per_epoch = max(len(self.dataset), 1)
         num_epochs = max(1, -(-args.max_train_steps // steps_per_epoch))
-        self.logger.info("training: %d steps, %d/epoch, %d epochs",
-                         args.max_train_steps, steps_per_epoch, num_epochs)
+        self.logger.info("training: %d steps, %d/epoch, %d epochs; the generator "
+                         "updates every %d steps", args.max_train_steps, steps_per_epoch,
+                         num_epochs, self.state.optimizer.every)
         # resume fast-forward (reference training_script.py:544-548):
         # restart inside the checkpoint's epoch, skipping its used batches
         resumed = bool(args.resume_from_checkpoint) and self.global_step > 0

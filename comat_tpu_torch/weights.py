@@ -250,6 +250,23 @@ def _blip_rule(path: Tuple[str, ...]) -> Optional[Rule]:
     return None
 
 
+def _blip_vqa_rule(path: Tuple[str, ...]) -> Optional[Rule]:
+    """BLIPVQA leaves: the vision tower's as the captioner's; the answer
+    decoder's `dec_*` leaves as the captioner's text leaves; the question
+    encoder's `enc_*` ones under `text_encoder.` (the inverse of JAX's
+    `hf_import._blip_vqa_hf_name`)."""
+    top = path[0]
+    if top == "vision":
+        return _blip_rule(path)
+    if top.startswith("dec_"):
+        return _blip_rule((top[4:],) + tuple(path[1:]))
+    if top.startswith("enc_"):
+        mapped = _blip_rule((top[4:],) + tuple(path[1:]))
+        if mapped is not None:
+            return mapped[0].replace("text_decoder.bert.", "text_encoder."), mapped[1]
+    return None
+
+
 def _swap_mid_blocks(x: np.ndarray, axis: int) -> np.ndarray:
     """Swap the 2nd and 3rd quarters of `axis`: Swin patch merging's
     sub-pixel order, flax's (x00, x01, x10, x11) against torch's (x00,
@@ -484,8 +501,8 @@ def _disc_convert(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{"unet", "text", "text2", "vae", "blip", "disc", "gdino", "fastsam"} JAX
-    parameter trees, as numpy arrays -> state dicts of the port's modules
+    """{"unet", "text", "text2", "vae", "blip", "blip_vqa", "disc", "gdino",
+    "fastsam"} JAX parameter trees, as numpy arrays -> state dicts of the port's modules
     under the same keys (CPU fp32 tensors; the modules cast them to their
     own dtypes on load). "text2" is SDXL's second tower, its
     `text_projection` (hidden, proj) transposed to transformers' (proj,
@@ -498,7 +515,8 @@ def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     in_proj thirds, the patch-merge block order, the ConvTranspose tap
     flip). Keys missing from `tree` are missing from the result."""
     rules = {"unet": _unet_rule, "text": _clip_rule, "text2": _clip_rule,
-             "vae": _vae_rule, "blip": _blip_rule, "gdino": _gdino_rule}
+             "vae": _vae_rule, "blip": _blip_rule, "blip_vqa": _blip_vqa_rule,
+             "gdino": _gdino_rule}
     out = {k: _convert(tree[k], rule) for k, rule in rules.items() if k in tree}
     if "fastsam" in tree:
         fs = tree["fastsam"]

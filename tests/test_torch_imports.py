@@ -49,7 +49,9 @@ def test_importing_every_module_loads_no_jax():
             "comat_tpu_torch.segmentation.grounded_sam",
             "comat_tpu_torch.segmentation.checkpoints",
             "comat_tpu_torch.segmentation.gdino_import_hf",
-            "comat_tpu_torch.models.hf_import"} <= set(mods)
+            "comat_tpu_torch.models.hf_import", "comat_tpu_torch.models.blip_vqa",
+            "comat_tpu_torch.tools.gan_gt_generate",
+            "comat_tpu_torch.tools.evaluate"} <= set(mods)
     res = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -80,6 +82,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
         from comat_tpu_torch.models.blip import make_blip
         from comat_tpu_torch.train import main as train_main
         from comat_tpu_torch.segmentation.grounded_sam import GroundedSAMSegmenter
+        from comat_tpu_torch.tools.evaluate import main as eval_main
+        from comat_tpu_torch.tools.gan_gt_generate import main as gan_main
         cfg = make_pipeline_config("sd_1_5", lora_rank=0, resolution=64, tiny=True)
         xl = make_pipeline_config("sdxl", lora_rank=0, resolution=64, tiny=True)
         for call in (lambda: DiffusionPipeline(cfg), lambda: GroundedSAMSegmenter(),
@@ -93,7 +97,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
                      lambda: train_main(["--tiny_models", "--training_prompts",
                                          "collected_data/abc5k.txt",
                                          "--pretrain_model_name", "sdxl_attrcon_unet",
-                                         "--output_dir", "build/no_card"])):
+                                         "--output_dir", "build/no_card"]),
+                     lambda: gan_main(["--tiny", "--prompt-path", "collected_data/abc5k.txt",
+                                       "--end", "2", "--save-path", "build/no_card/store"]),
+                     lambda: eval_main(["--tiny", "--prompt-path", "collected_data/abc5k.txt",
+                                        "--max-prompts", "2"])):
             try:
                 call()
             except RuntimeError as e:
@@ -102,4 +110,4 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
                 print("RAN")
     """)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.count("RAISED") == 8, res.stdout
+    assert res.stdout.count("RAISED") == 10, res.stdout

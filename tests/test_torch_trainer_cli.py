@@ -76,7 +76,7 @@ def test_parser_matches_jax_on_sd15_flags(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--use_8bit_adam"], ["--full_finetuning"], ["--train_text_encoder_lora"],
-    ["--gradient_accumulation_steps", "2"],
+    ["--mesh_model_axis", "2"],
     ["--pretrain_model_name", "sdxl", "--tune_text_encoder"],
     ["--pass1_int8"], ["--prediction_type", "v_prediction"]])
 def test_unported_flags_raise_naming_their_item(flags):

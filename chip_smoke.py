@@ -145,15 +145,43 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    --metric both --allow-smoke: a row a prompt, every P(yes) in [0, 1], a
    finite reward, 751 A and 21 B; generation, decode, reward and BLIP-VQA
    seconds apart.
-Then one JSON line {"kernels": [...], "checks": [...]} and, last, the
+16. SD1.5 trainable surfaces: (a) phase 4's geometry in fp32 (256^2,
+   total_step 4, K 2, 1 prompt, SD1.5 and BLIP-large at full width, the
+   BLIP reward) with --full_finetuning (the whole UNet and its LoRA 128),
+   CLIP-L whole (--tune_text_encoder) and LoRA 8 on its attention
+   (--train_text_encoder_lora), nonzero lora_b, card against CPU: the
+   loss and its components within 1e-3, every UNet, text-LoRA and CLIP-L
+   gradient leaf within 1e-3 relative (the zero-leaf rule of phase 4);
+   (b) the trainer CLI on sd15.sh's flags plus --full_finetuning
+   --use_8bit_adam --train_text_encoder_lora --tune_text_encoder, 3 steps
+   with a validation image and a checkpoint at 0, 2 and 3 (the newest two
+   kept), against phase
+   9's latent store: seconds per step and its split, s_optimizer, peak
+   memory, the 8-bit state's bytes, launches by role phase 9's a step;
+   (c) D's base (a frozen copy under --full_finetuning) equals its initial
+   values with no gradient after 3 G updates while G's base moved; the
+   exported file loads into a fresh pipeline with no tensor missing or
+   unused; a run resumed from checkpoint-2 ends step 3 bit for bit, the
+   8-bit codes and scales included. Its outputs are deleted at the end.
+17. SDXL trainable surfaces: the trainer on sdxl.sh's flags plus the same
+   four flags, 2 steps (`Trainer.train_one`, no checkpoint) at batch 6,
+   or the largest of 4 and 2 that fits, against phase 12's latent store:
+   text2.text_projection's gradient (it comes through the pooled embeds)
+   finite and nonzero after step 1, every fp32 master moved by step 1
+   (but the zero tensors no gradient reaches: CLIP-L's last layer, unread
+   by SDXL), seconds per step, s_optimizer, peak memory, launches by role
+   phase 12's a step.
+Each phase prints the GiB allocated and reserved at its start. Then one
+JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
 in the driven paths: generation, the reduced recipe's train step, the
 same step with the VAE trained, phase 4's fp32 card run of the train step
 with the VAE trained (dw), the full recipe's step, the latent store's
 encoding, the trainer CLI's run, SDXL's latent store and trainer run,
 the generation and trainer run from the SD1.5 snapshot, the latent tool's
-store, the accumulated trainer's runs and the evaluator. Weights are
-random (the real ones are not in the repository); depth is not cut.
+store, the accumulated trainer's runs, the evaluator and phases 16(b) and
+17's trainers. Weights are random (the real ones are not in the
+repository); depth is not cut.
 """
 
 from __future__ import annotations
@@ -1672,7 +1700,8 @@ def phase_sdxl_trainer(torch, fa, cv, kernels, cli_median, cli_peak):
     --gradient_checkpointing) at batch 6, 512^2, SDXL_STEPS steps, against a
     latent store the SDXL VAE encoder made, with a checkpoint at step 0 and
     at the end. Returns (launches by kernel and shape of the trainer's run,
-    of the store's encoding)."""
+    of the store's encoding, its medians, its peak memory GiB and the
+    store's index, for phase 17)."""
     from comat_tpu_torch.train import main as train_main
     from comat_tpu_torch.training import train_step as ts
     from comat_tpu_torch.training.arguments import launcher_argv
@@ -1748,7 +1777,7 @@ def phase_sdxl_trainer(torch, fa, cv, kernels, cli_median, cli_peak):
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
-    return shapes, encode_shapes, median, peak
+    return shapes, encode_shapes, median, peak, index
 
 
 _ST_DTYPES = {"torch.float32": "F32", "torch.float16": "F16", "torch.int64": "I64"}
@@ -2346,6 +2375,395 @@ def phase_evaluate(torch, fa, cv, kernels):
     return shapes
 
 
+SURFACE_FLAGS = ["--full_finetuning", "--use_8bit_adam", "--train_text_encoder_lora",
+                 "--tune_text_encoder"]
+SURF_TEXT_RANK = 8
+SURF_STEPS, SURF_RESUME = 3, 2
+# phase 16(a): 4 pass-1 steps and K 2 replay recomputes of the 10 flash
+# self-attentions at 256^2, and the decode's
+SURF_PARITY_LAUNCHES = {"flash_fwd": 10 * (4 + 2) + 1, "dq": 10 * 2 + 1, "dkv": 10 * 2 + 1,
+                        "conv_fwd": 14, "conv_dx": 14, "dw": 0}
+SXS_STEPS = 2
+SXS_BATCHES = (SDXL_BATCH, 4, 2)
+
+
+def _gib(torch) -> str:
+    return (f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+
+
+def _leaf_rels(grads_gpu, grads_cpu):
+    """Per leaf: max |card - CPU| over the larger max |gradient|, and the
+    leaves whose CPU gradient is below ZERO_LEAF_REL of the largest (zero
+    in exact arithmetic): their largest |g| over the largest gradient."""
+    scale = max(float(g.abs().max()) for g in grads_cpu.values())
+    rels, zero_leaves = {}, {}
+    for name, gc_ in grads_cpu.items():
+        gg, gc_ = grads_gpu[name].double(), gc_.double()
+        peak = max(float(gg.abs().max()), float(gc_.abs().max()))
+        if float(gc_.abs().max()) < ZERO_LEAF_REL * scale:
+            zero_leaves[name] = peak / scale
+        else:
+            rels[name] = float((gg - gc_).abs().max()) / max(peak, 1e-12)
+    return rels, zero_leaves
+
+
+def phase_surfaces_parity(torch, fa, cv, kernels):
+    """16(a): one make_loss_fn value and backward of the SD1.5 step with
+    every trainable surface on, at phase 4's geometry in fp32 (256^2,
+    total_step 4, K 2, batch 1, SD1.5 and BLIP-large at full width), the
+    BLIP reward alone: the whole UNet (--full_finetuning) with LoRA 128,
+    CLIP-L whole (--tune_text_encoder) with LoRA 8 on its attention
+    (--train_text_encoder_lora), nonzero lora_b, on the card and on the
+    CPU."""
+    from comat_tpu_torch.config import BLIPConfig
+    from comat_tpu_torch.models.blip import make_blip
+    from comat_tpu_torch.models.pipeline import DiffusionPipeline
+    from comat_tpu_torch.training import train_step as ts
+
+    cfg = dataclasses.replace(fp32_config("sd_1_5", 256, lora_rank=128),
+                              text_lora_rank=SURF_TEXT_RANK)
+    bcfg = dataclasses.replace(BLIPConfig.large(), dtype=torch.float32)
+    tcfg = ts.TrainConfig(total_step=4, K=2, resolution=256, train_text_encoder=True)
+    t0 = time.perf_counter()
+    cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
+    g = torch.Generator().manual_seed(SEED + 11)
+    _nonzero_lora_b(torch, cpu.unet, g)
+    _nonzero_lora_b(torch, cpu.text, g)
+    gpu = DiffusionPipeline(cfg, device="cuda", params=cpu.state_dicts())
+    blip_cpu = make_blip(bcfg, device="cpu", seed=SEED + 1)
+    blip_gpu = make_blip(bcfg, device="cuda", params=blip_cpu.state_dict())
+    log(f"  weights made in {time.perf_counter() - t0:.1f} s")
+    batch = _train_batch(TRAIN_PROMPTS[:1], cfg.text.vocab_size, bcfg.vocab_size)
+    draws = ts.sample_draws(tcfg, 1, cfg.latent_size, torch.Generator().manual_seed(SEED + 3))
+
+    def run(pipe, blip):
+        trainable = ts.partition_params(pipe, tune_text_encoder=True, full_finetuning=True)
+        dev = pipe.device
+        d = draws._replace(latents0=draws.latents0.to(dev), step_noise=draws.step_noise.to(dev))
+        loss, (metrics, _) = ts.make_loss_fn(pipe, blip, tcfg)(batch, d)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in trainable.items() if p.grad is not None}
+        return ({k: float(v) for k, v in metrics.items()}, grads,
+                sorted(n for n, p in trainable.items() if p.grad is None))
+
+    t0 = time.perf_counter()
+    metrics_cpu, grads_cpu, none_cpu = run(cpu, blip_cpu)
+    t_cpu = time.perf_counter() - t0
+    del cpu, blip_cpu
+    reset(kernels)
+    t0 = time.perf_counter()
+    metrics_gpu, grads_gpu, none_gpu = run(gpu, blip_gpu)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    counts = counts_by_role(fa, cv)
+    rels, zero_leaves = _leaf_rels(grads_gpu, grads_cpu)
+    worst_name = max(rels, key=rels.get)
+    groups = {"UNet base": lambda n: n.startswith("unet.") and "lora_" not in n,
+              "UNet LoRA": lambda n: n.startswith("unet.") and "lora_" in n,
+              "text LoRA": lambda n: n.startswith("text.") and "lora_" in n,
+              "CLIP-L": lambda n: n.startswith("text.") and "lora_" not in n}
+    per_group = {k: (sum(f(n) for n in grads_cpu),
+                     max((r for n, r in rels.items() if f(n)), default=0.0))
+                 for k, f in groups.items()}
+    diffs = {k: abs(metrics_gpu[k] - metrics_cpu[k]) for k in metrics_cpu}
+    log(f"  card {metrics_gpu}")
+    log(f"  CPU  {metrics_cpu}")
+    log(f"  |card - CPU| {diffs}; {len(grads_cpu)} gradient leaves, worst relative "
+        f"{rels[worst_name]:.3e} at {worst_name} (cpu {t_cpu:.1f} s, card {t_gpu:.1f} s)")
+    log("  leaves and worst relative by group: " + ", ".join(
+        f"{k} {n} {w:.3e}" for k, (n, w) in per_group.items()))
+    log(f"  without gradient (card, CPU): {none_gpu}, {none_cpu}; zero-gradient leaves, "
+        f"largest |g| over the largest gradient: {zero_leaves}")
+    log(f"  launches {counts} (predicted {SURF_PARITY_LAUNCHES})")
+    if not all(math.isfinite(metrics_gpu[k]) and diffs[k] <= LOSS_TOL for k in diffs):
+        raise AssertionError(f"surfaces loss components card vs CPU differ: {diffs}")
+    if not rels[worst_name] <= GRAD_TOL:
+        raise AssertionError(f"gradient {worst_name} differs by {rels[worst_name]:.3e}")
+    if not all(r <= ZERO_LEAF_TOL for r in zero_leaves.values()):
+        raise AssertionError(f"zero-gradient leaves are not at noise level: {zero_leaves}")
+    if none_gpu != none_cpu or not all(n for n, _ in per_group.values()):
+        raise AssertionError(f"surfaces without gradient: {none_gpu} / {none_cpu}")
+    if counts != SURF_PARITY_LAUNCHES:
+        raise AssertionError(f"surfaces parity launched {counts}")
+    del gpu, blip_gpu, grads_gpu, grads_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _state_diffs(torch, a, b):
+    """max |delta| of every tensor of two checkpoints' state.pt payloads
+    (the trainables, the optimizers' masters and AdamW states, 8-bit codes
+    and scales included), by name."""
+    diffs = {}
+    for key in ("trainable", "d_trainable"):
+        for n in a[key]:
+            diffs[f"{key}.{n}"] = (a[key][n].float() - b[key][n].float()).abs().max().item()
+    for key in ("optimizer", "d_optimizer"):
+        for n, m in a[key]["masters"].items():
+            diffs[f"{key}.masters.{n}"] = (m - b[key]["masters"][n]).abs().max().item()
+        sa, sb = a[key]["adam"]["state"], b[key]["adam"]["state"]
+        for i in sa:
+            for m in sa[i]:
+                if torch.is_tensor(sa[i][m]):
+                    diffs[f"{key}.{i}.{m}"] = (sa[i][m].float()
+                                               - sb[i][m].float()).abs().max().item()
+                elif sa[i][m] != sb[i][m]:
+                    diffs[f"{key}.{i}.{m}"] = float("inf")
+    return diffs
+
+
+def phase_surfaces_trainer(torch, fa, cv, kernels, index, cli_median, cli_peak):
+    """16(b, c): the trainer CLI on comat_tpu_torch/scripts/sd15.sh's flags
+    with every trainable surface and 8-bit AdamW, SURF_STEPS steps with
+    validation and a checkpoint at 0, SURF_RESUME and the end, against
+    phase 9's latent store; then a run resumed from checkpoint-SURF_RESUME.
+    Returns the launches by kernel and shape of both runs."""
+    from comat_tpu_torch.models import hf_import
+    from comat_tpu_torch.models.pipeline import DiffusionPipeline
+    from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.arguments import launcher_argv, parse_args
+    from comat_tpu_torch.training.optim8bit import AdamW8bit
+    from comat_tpu_torch.training.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke", "surfaces")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    argv = launcher_argv(os.path.join(REPO, SD15_LAUNCHER))
+    i = argv.index("--training_prompts") + 1
+    argv[i] = os.path.join(REPO, argv[i])
+    out = os.path.join(work, "output")
+    argv += ["--gan_gt_path", index, "--num_validation_images", "1",
+             "--max_train_steps", str(SURF_STEPS), "--validation_steps", str(SURF_RESUME),
+             "--checkpoints_total_limit", "2", *SURFACE_FLAGS]
+    n_val = 3   # validations at step 0, SURF_RESUME and SURF_STEPS
+    log("  argv: " + " ".join(argv))
+    probe = lambda: counts_by_role(fa, cv)  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    reset(kernels)
+    t0 = time.perf_counter()
+    trainer = Trainer(parse_args(argv + ["--output_dir", out]), probe=probe)
+    opt = trainer.state.optimizer
+    g_ids = {id(p) for p in trainer.pipeline.unet.parameters()}
+    d_base = {n: p for n, p in trainer.disc.unet.named_parameters() if "lora_" not in n}
+    d_base0 = {n: p.detach().to("cpu", copy=True) for n, p in d_base.items()}
+    g_base0 = {n: m.detach().to("cpu", copy=True) for n, m in opt.masters.items()
+               if n.startswith("unet.") and "lora_" not in n}
+    surfaces = {t: sum(n.startswith(t + ".") for n in trainer.state.trainable)
+                for t in ("unet", "text")}
+    log(f"  trainable tensors {surfaces} ({sum(p.numel() for p in trainer.state.trainable.values()) / 1e6:.1f} M"
+        f"), text LoRA rank {trainer.pcfg.text_lora_rank}, {len(d_base)} D base tensors "
+        f"of their own: {not any(id(p) in g_ids for p in d_base.values())}")
+    trainer.train()
+    trainer.metrics.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = counts_by_role(fa, cv)
+    roles = _cli_roles(trainer)
+    int8_bytes = opt.adam.state_bytes()
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    keys = ("s_step", *ts.PHASES)
+    for r in rows:
+        log(f"  step {r['step']}: loss {r['step_loss']:.4f}, G_loss {r['G_loss']:.4f}, "
+            f"D_loss {r['D_loss']:.4f}, grad_norm {r['grad_norm']:.4e}; "
+            f"{r['sec_per_step']:.3f} s wall; " + ", ".join(f"{k} {r[k]:.3f}" for k in keys))
+    median = _median(rows[1:], ("sec_per_step",) + keys)
+    log(f"  surfaces_trainer: {median['s_step']:.3f} s per step on the device "
+        f"({median['sec_per_step']:.3f} s wall, median of steps 2-{SURF_STEPS}), s_optimizer "
+        f"{median['s_optimizer']:.3f} s, peak memory {peak:.1f} GiB ({peak - held:.2f} above "
+        f"the {held:.2f} GiB held before), run {wall:.1f} s ({n_val} validations and "
+        f"checkpoints); 8-bit AdamW state {int8_bytes / 2 ** 30:.3f} GiB "
+        f"({isinstance(opt.adam, AdamW8bit)}); phase 9, same run: "
+        f"{cli_median['s_step']:.3f} s, s_optimizer {cli_median['s_optimizer']:.3f} s, "
+        f"{cli_peak:.1f} GiB")
+    log("  split: " + ", ".join(f"{k} {median[k]:.3f} s" for k in ts.PHASES))
+    want_roles = {role: {k: n * SURF_STEPS for k, n in c.items()}
+                  for role, c in CLI_LAUNCHES.items()}
+    for role in FULL_ROLES:
+        log(f"  launches by role, {SURF_STEPS} steps: {role} {roles[role]} (predicted "
+            f"{want_roles[role]})")
+    want = {k: sum(c.get(k, 0) for c in want_roles.values())
+            + n_val * VALIDATION_LAUNCHES.get(k, 0) for k in counts}
+    log(f"  launches in all {counts}, predicted {want}")
+    d_same = all(torch.equal(d_base[n].detach().cpu(), v) and d_base[n].grad is None
+                 for n, v in d_base0.items())
+    g_moved = sum(not torch.equal(opt.masters[n].detach().cpu(), v) for n, v in g_base0.items())
+    log(f"  D's base after {SURF_STEPS} G updates equal to its initial values, no gradient: "
+        f"{d_same}; G's base masters moved: {g_moved} of {len(g_base0)}")
+    if len(rows) != SURF_STEPS or not all(
+            math.isfinite(r[k]) for r in rows for k in ("step_loss", "G_loss", "D_loss",
+                                                        "grad_norm")):
+        raise AssertionError(f"surfaces trainer metrics: {rows}")
+    if roles != want_roles or counts != want:
+        raise AssertionError(f"surfaces trainer launched {counts} ({roles}), expected "
+                             f"{want} ({want_roles})")
+    if not (d_same and g_moved > len(g_base0) // 2 and isinstance(opt.adam, AdamW8bit)
+            and trainer.pcfg.text_lora_rank == trainer.args.lora_rank):
+        raise AssertionError("D's base moved, G's did not, or a surface is missing")
+    shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    pcfg = trainer.pcfg
+    del trainer, opt, d_base, d_base0, g_base0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the exported file into a fresh pipeline: every tensor it holds lands
+    last = os.path.join(out, f"checkpoint-{SURF_STEPS}")
+    lora_file = os.path.join(last, "pytorch_lora_weights.safetensors")
+    fresh = DiffusionPipeline(pcfg, device="cuda", seed=SEED + 5, fuse_pass1=False)
+    reports = hf_import.load_lora_state(lora_file, fresh)
+    bad = {t: (r.missing[:3], r.unused[:3]) for t, r in reports.items()
+           if r.missing or r.unused}
+    log(f"  {os.path.basename(lora_file)} ({os.path.getsize(lora_file) / 1e9:.3f} GB) into a "
+        f"fresh pipeline: " + ", ".join(f"{t} {r.nbytes / 1e9:.3f} GB" for t, r in
+                                        reports.items()) + f"; missing or unused: {bad}")
+    if bad or set(reports) != {"unet", "text"}:
+        raise AssertionError(f"the export does not load cleanly: {bad}")
+    del fresh, reports
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resume from checkpoint-SURF_RESUME, named by path, into a directory of
+    # its own: step SURF_STEPS against the uninterrupted run's, bit for bit
+    res_out = os.path.join(work, "resumed")
+    mid = os.path.join(out, f"checkpoint-{SURF_RESUME}")
+    reset(kernels)
+    resumed = Trainer(parse_args(argv + ["--output_dir", res_out,
+                                         "--resume_from_checkpoint", mid]), probe=probe)
+    if resumed.global_step != SURF_RESUME:
+        raise AssertionError(f"resumed at step {resumed.global_step}")
+    resumed.train()
+    resumed.metrics.close()
+    torch.cuda.synchronize()
+    for kern in kernels:
+        acc = shapes.setdefault(kern.symbol, {})
+        for key, n in kern.launches_by_shape.items():
+            acc[key] = acc.get(key, 0) + n
+    row = json.loads(open(os.path.join(res_out, "metrics.jsonl")).read().splitlines()[-1])
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = torch.load(os.path.join(last, "state.pt"), weights_only=True)
+    b = torch.load(os.path.join(res_out, f"checkpoint-{SURF_STEPS}", "state.pt"),
+                   weights_only=True)
+    diffs = _state_diffs(torch, a, b)
+    worst = max(diffs, key=diffs.get)
+    codes = sum(1 for k in diffs if k.endswith(("mu_q", "nu_q")))
+    equal = (max(diffs.values()) == 0.0 and torch.equal(a["generator"], b["generator"])
+             and a["extra"] == b["extra"] and row["step_loss"] == rows[-1]["step_loss"])
+    log(f"  resumed step {row['step']}: loss {row['step_loss']:.4f} (uninterrupted "
+        f"{rows[-1]['step_loss']:.4f}); checkpoint-{SURF_STEPS} against the uninterrupted "
+        f"run's: {len(diffs)} tensors ({codes} int8 code tensors), largest |delta| "
+        f"{diffs[worst]:.3e} ({worst}); equal: {equal}")
+    if not equal or row["step"] != SURF_STEPS or not codes:
+        raise AssertionError("the resumed run's step does not repeat the uninterrupted run's")
+    del a, b
+    shutil.rmtree(work, ignore_errors=True)
+    return shapes, median, peak
+
+
+def phase_sdxl_surfaces(torch, fa, cv, kernels, index, sdxl_median, sdxl_peak):
+    """17: the SDXL trainer on comat_tpu_torch/scripts/sdxl.sh's flags with
+    every trainable surface and 8-bit AdamW, SXS_STEPS steps of
+    `Trainer.train_one` (no checkpoint: one would write ~36 GB), at the
+    largest of SXS_BATCHES that fits, against phase 12's latent store.
+    Returns (launches by kernel and shape, the batch that ran)."""
+    from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.arguments import launcher_argv, parse_args
+    from comat_tpu_torch.training.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke", "sdxl_surfaces")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    argv = launcher_argv(os.path.join(REPO, SDXL_LAUNCHER))
+    i = argv.index("--training_prompts") + 1
+    argv[i] = os.path.join(REPO, argv[i])
+    argv += ["--gan_gt_path", index, "--max_train_steps", str(SXS_STEPS),
+             "--output_dir", os.path.join(work, "output"), *SURFACE_FLAGS]
+    probe = lambda: counts_by_role(fa, cv)  # noqa: E731
+    for batch in SXS_BATCHES:
+        bargv = argv + ["--train_batch_size", str(batch)]
+        log(f"  argv: {' '.join(bargv)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset(kernels)
+        trainer = opt = rows = None
+        try:
+            trainer = Trainer(parse_args(bargv), probe=probe)
+            opt = trainer.state.optimizer
+            masters0 = {n: m.detach().to("cpu", copy=True) for n, m in opt.masters.items()}
+            n_params = sum(m.numel() for m in masters0.values())
+            log(f"  {len(masters0)} trainable tensors, {n_params / 1e9:.3f} G parameters: "
+                + ", ".join(f"{t} {sum(n.startswith(t + '.') for n in masters0)}"
+                            for t in ("unet", "text", "text2")) + f"; {_gib(torch)}")
+            prompts = iter(trainer.dataset.epoch(0))
+            rows = [trainer.train_one(next(prompts))]
+            proj = opt.masters["text2.text_projection.weight"].grad
+            proj_ok = bool(proj is not None and torch.isfinite(proj).all()
+                           and proj.abs().max() > 0)
+            moved = [n for n, m in opt.masters.items()
+                     if not torch.equal(m.detach().cpu(), masters0[n])]
+            still = sorted(set(masters0) - set(moved))
+            # a tensor no gradient reaches and that holds zeros stays: AdamW
+            # moves it by lr * wd * 0 (SDXL reads CLIP-L's penultimate
+            # states, so its last layer's zero biases and LoRA-B)
+            unreached = {n for n in still if not masters0[n].any() and (
+                opt.masters[n].grad is None or not opt.masters[n].grad.any())}
+            del masters0
+            for _ in range(SXS_STEPS - 1):
+                rows.append(trainer.train_one(next(prompts)))
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"  batch {batch} does not fit: {str(e).splitlines()[0]}")
+            trainer = opt = None
+            if batch == SXS_BATCHES[-1]:
+                raise
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = counts_by_role(fa, cv)
+    roles = _cli_roles(trainer)
+    int8_bytes = opt.adam.state_bytes()
+    keys = ("s_step", *ts.PHASES)
+    for n, r in enumerate(rows, 1):
+        log(f"  step {n}: loss {r['step_loss']:.4f}, G_loss {r['G_loss']:.4f}, D_loss "
+            f"{r['D_loss']:.4f}, grad_norm {r['grad_norm']:.4e}; "
+            + ", ".join(f"{k} {r[k]:.3f}" for k in keys))
+    last = rows[-1]
+    log(f"  sdxl_surfaces at batch {batch}: {last['s_step']:.3f} s per step on the device "
+        f"(step {len(rows)}), s_optimizer {last['s_optimizer']:.3f} s, peak memory "
+        f"{peak:.1f} GiB, 8-bit AdamW state {int8_bytes / 2 ** 30:.3f} GiB; phase 12, same "
+        f"run: {sdxl_median['s_step']:.3f} s, s_optimizer {sdxl_median['s_optimizer']:.3f} s, "
+        f"{sdxl_peak:.1f} GiB")
+    log(f"  text2.text_projection's gradient after step 1 finite and nonzero: {proj_ok}; "
+        f"masters moved by step 1: {len(moved)} of {len(moved) + len(still)}; unmoved, "
+        f"zero and without gradient: {sorted(unreached)}; other unmoved: "
+        f"{sorted(set(still) - unreached)}")
+    want_roles = {role: {k: n * SXS_STEPS for k, n in c.items()}
+                  for role, c in SDXL_CLI_LAUNCHES.items()}
+    scale = batch / SDXL_BATCH
+    log(f"  launches by role, {SXS_STEPS} steps: {roles} (predicted at batch "
+        f"{SDXL_BATCH}: {want_roles}); in all {counts}")
+    if not all(math.isfinite(r[k]) for r in rows for k in ("step_loss", "G_loss", "D_loss",
+                                                           "grad_norm")):
+        raise AssertionError(f"SDXL surfaces metrics: {rows}")
+    if not proj_ok or set(still) - unreached:
+        raise AssertionError(f"pooled-embed gradient {proj_ok}, unmoved tensors "
+                             f"{sorted(set(still) - unreached)[:5]}")
+    if scale == 1 and roles != want_roles:
+        raise AssertionError(f"SDXL surfaces launched {roles}, expected {want_roles}")
+    shapes = ({kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+              if batch == SDXL_BATCH else {})
+    del trainer, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return shapes, batch
+
+
 def main() -> int:
     import torch
 
@@ -2366,12 +2784,13 @@ def main() -> int:
         starts.append((len(starts) + 1, time.perf_counter(),
                        torch.cuda.memory_allocated() / 2 ** 30))
         log(text)
+        log(f"  at the start: {_gib(torch)}")
 
     log(gpu_name_and_power())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    header("[1/15] build")
+    header("[1/17] build")
     t0 = time.perf_counter()
     paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
@@ -2384,64 +2803,77 @@ def main() -> int:
     phase_sass(paths)
     kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
 
-    header("[2/15] kernels against their plain versions")
+    header("[2/17] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    header("[3/15] generation: SD1.5 fp32 256^2 card vs CPU")
+    header("[3/17] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    header("[4/15] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
+    header("[4/17] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    header("[5/15] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    header("[5/17] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
     gen = phase_main(torch, kernels)
     gen_shapes = gen[0]
 
-    header("[6/15] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    header("[6/17] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
     train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    header("[7/15] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    header("[7/17] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
     tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
 
-    header("[8/15] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
+    header("[8/17] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
     full_shapes, full_median, full_peak = phase_train_full(torch, fa, cv, kernels, pipe,
                                                            blip, batch)
     del pipe, blip, batch
 
-    header("[9/15] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
+    header("[9/17] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
         f"512^2, batch 4, {CLI_STEPS} steps, then a run resumed at step {CLI_RESUME}")
     cli_shapes, encode_shapes, cli_median, cli_peak, cli = phase_trainer_cli(
         torch, fa, cv, kernels, full_median, full_peak)
 
-    header("[10/15] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
+    header("[10/17] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
         "then bf16 at batch 4")
     phase_gsam(torch)
 
-    header("[11/15] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
+    header("[11/17] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
         "fp32 card vs CPU")
     phase_sdxl_parity(torch, fa, cv, kernels)
 
-    header("[12/15] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
+    header("[12/17] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
         f"Grounded-SAM, remat), 512^2, batch {SDXL_BATCH}, {SDXL_STEPS} steps")
-    sdxl_shapes, sdxl_encode_shapes, _, _ = phase_sdxl_trainer(torch, fa, cv, kernels,
-                                                               cli_median, cli_peak)
+    sdxl_shapes, sdxl_encode_shapes, sdxl_median, sdxl_peak, sdxl_index = phase_sdxl_trainer(
+        torch, fa, cv, kernels, cli_median, cli_peak)
 
-    header("[13/15] snapshots: SD1.5 and BLIP-large fp32 in a hub cache, the generator and "
+    header("[13/17] snapshots: SD1.5 and BLIP-large fp32 in a hub cache, the generator and "
         f"the trainer ({SNAPSHOT_STEPS} steps) from them; SDXL's fp16 variant files")
     snap_gen_shapes, snap_cli_shapes = phase_snapshots(torch, fa, cv, kernels, gen, cli)
+    cli_index = cli["index"]
     del gen, cli
 
-    header(f"[14/15] latent store: tools.gan_gt_generate on {GAN_GT_PROMPTS} prompts at 512^2, "
+    header(f"[14/17] latent store: tools.gan_gt_generate on {GAN_GT_PROMPTS} prompts at 512^2, "
         f"then the trainer on it with --gradient_accumulation_steps {ACCUM_N}, "
         f"{ACCUM_STEPS} micro-steps and a resume at {ACCUM_RESUME}")
     store_shapes, accum_shapes = phase_gan_store_accum(torch, fa, cv, kernels, cli_median,
                                                        cli_peak)
 
-    header("[15/15] evaluator: BLIP-VQA base fp32 card vs CPU, then tools.evaluate on "
+    header("[15/17] evaluator: BLIP-VQA base fp32 card vs CPU, then tools.evaluate on "
         f"{EVAL_PROMPTS} prompts at 512^2 (BLIP reward and BLIP-VQA binding)")
     eval_shapes = phase_evaluate(torch, fa, cv, kernels)
+
+    header("[16/17] SD1.5 surfaces: (a) --full_finetuning + text LoRA 8 + CLIP-L fp32 256^2 "
+           "card vs CPU; (b) sd15.sh's flags + " + " ".join(SURFACE_FLAGS)
+           + f", {SURF_STEPS} steps, then a run resumed at step {SURF_RESUME}")
+    phase_surfaces_parity(torch, fa, cv, kernels)
+    surf_shapes, _, _ = phase_surfaces_trainer(torch, fa, cv, kernels, cli_index,
+                                               cli_median, cli_peak)
+
+    header("[17/17] SDXL surfaces: sdxl.sh's flags + " + " ".join(SURFACE_FLAGS)
+           + f", {SXS_STEPS} steps at batch {SDXL_BATCH} (or the largest that fits)")
+    sxs_shapes, sxs_batch = phase_sdxl_surfaces(torch, fa, cv, kernels, sdxl_index,
+                                                sdxl_median, sdxl_peak)
     ends = [t for _, t, _ in starts[1:]] + [time.perf_counter()]
     log("  seconds a phase (GiB allocated at its start): " + ", ".join(
         f"{n} {end - t:.1f} ({held:.2f})" for (n, t, held), end in zip(starts, ends)))
@@ -2461,7 +2893,11 @@ def main() -> int:
              "trainer_cli": cli_shapes, "sdxl_gan_store_encode": sdxl_encode_shapes,
              "sdxl_trainer_cli": sdxl_shapes, "snapshot_generate": snap_gen_shapes,
              "snapshot_trainer_cli": snap_cli_shapes, "gan_gt_generate": store_shapes,
-             "accum_trainer_cli": accum_shapes, "evaluate": eval_shapes}
+             "accum_trainer_cli": accum_shapes, "evaluate": eval_shapes,
+             "surfaces_trainer_cli": surf_shapes, "sdxl_surfaces_trainer": sxs_shapes}
+    if sxs_batch != SDXL_BATCH:
+        log(f"  phase 17 ran at batch {sxs_batch}, whose shapes phase 2 does not time: "
+            "its launches are left out of the kernels line")
     for e in entries:
         key = tuple(e.pop("key"))
         for path, shapes in paths.items():

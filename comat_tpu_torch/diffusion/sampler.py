@@ -21,10 +21,11 @@ latents of the A chosen segments: each computes the cond-half
 cross-attention maps, and its backward re-runs that forward with
 gradients on.
 
-SDXL's added condition (the pooled text embed and the size and crop ids)
-rides in the eps models and capture primals the pipeline passes: a
-constant of the op, not one of its inputs, so no gradient flows to it
-(the pipeline refuses to train the text towers under SDXL).
+SDXL's added condition: the pooled text embeds (the prompts' and the
+null prompts') are inputs of both ops beside the contexts, so their
+gradients reach the second text tower as JAX's `diff_tree["added"]`
+carries them; the size and crop ids ride in the eps models and capture
+primals the pipeline passes, constants of the op.
 """
 
 from __future__ import annotations
@@ -85,82 +86,85 @@ def sample_inference(
 class _CachedPrimalEps(torch.autograd.Function):
     """The guided eps at a trained step, as `_make_cached_primal_eps`.
 
-    forward(diff_eps_model, t, x, cached_eps, context, null_context,
+    forward(diff_eps_model, t, mark, n_cond, x, cached_eps, *conds,
     *params) returns `cached_eps` (pass 1's eps at the same point) and
-    runs no UNet. backward re-runs `diff_eps_model(x, t, context,
-    null_context)` with gradients on and returns its VJP into x, the
-    contexts and `params` (the trainable tensors the model reads), each
-    only where autograd asks for it. The trainable tensors are inputs of
-    the op, as `diff_tree` is in JAX, so their gradients reach them
-    through autograd."""
+    runs no UNet. `conds` are the `n_cond` conditioning tensors the model
+    takes after (x, t), each possibly None: the context and the null
+    context, and with SDXL the pooled text embeds of the prompts and of
+    the null prompts. backward re-runs `diff_eps_model(x, t, *conds)`
+    with gradients on and returns its VJP into x, the conds and `params`
+    (the trainable tensors the model reads, or the fp32 masters it reads
+    them through), each only where autograd asks for it. The conds and
+    the trainable tensors are inputs of the op, as `diff_tree` is in JAX,
+    so their gradients reach them through autograd."""
 
     @staticmethod
-    def forward(ctx, diff_eps_model, t, mark, x, cached_eps, context,
-                null_context, *params):
-        ctx.diff_eps_model, ctx.t, ctx.mark = diff_eps_model, t, mark
-        ctx.save_for_backward(x, context, null_context, *params)
+    def forward(ctx, diff_eps_model, t, mark, n_cond, x, cached_eps, *inputs):
+        ctx.diff_eps_model, ctx.t, ctx.mark, ctx.n_cond = diff_eps_model, t, mark, n_cond
+        ctx.save_for_backward(x, *inputs)
         return cached_eps.clone()
 
     @staticmethod
     def backward(ctx, g):
-        x, context, null_context, *params = ctx.saved_tensors
-        need_x, need_c, need_n = ctx.needs_input_grad[3], *ctx.needs_input_grad[5:7]
-        need_p = ctx.needs_input_grad[7:]
+        x, *inputs = ctx.saved_tensors
+        n = ctx.n_cond
+        need = [ctx.needs_input_grad[4], *ctx.needs_input_grad[6:]]
         ctx.mark("replay_bwd<")
         with torch.enable_grad():
-            xs = x.detach().requires_grad_(need_x)
-            c = context.detach().requires_grad_(need_c)
-            n = None if null_context is None else (
-                null_context.detach().requires_grad_(need_n))
-            eps = ctx.diff_eps_model(xs, ctx.t, c, n)
-            wrt = [xs, c, n] + list(params)
-            need = [need_x, need_c, need_n] + list(need_p)
+            xs = x.detach().requires_grad_(need[0])
+            conds = [None if c is None else c.detach().requires_grad_(k)
+                     for c, k in zip(inputs[:n], need[1:])]
+            eps = ctx.diff_eps_model(xs, ctx.t, *conds)
+            wrt = [xs, *conds, *inputs[n:]]
             picked = [w for w, k in zip(wrt, need) if k]
             grads = iter(torch.autograd.grad(eps, picked, g, allow_unused=True))
         out = [next(grads) if k else None for k in need]
         ctx.mark("replay_bwd>")
-        return (None, None, None, out[0], None, out[1], out[2], *out[3:])
+        return (None, None, None, None, out[0], None, *out[1:])
 
 
 class _CaptureOnly(torch.autograd.Function):
     """The captured maps at one attribute-concentration segment, as
     `_make_capture_only`.
 
-    forward(capture_primal, t, mark, layout, x, context, *params) runs
-    `capture_primal(x, t, context)` -> {key: [maps]} (the cond-half
-    capture forward, batch B, no guidance) without gradients and returns
+    forward(capture_primal, t, mark, layout, n_cond, x, *conds, *params)
+    runs `capture_primal(x, t, *conds)` -> {key: [maps]} (the cond-half
+    capture forward, batch B, no guidance; `conds` the context and, with
+    SDXL, the prompts' pooled text embeds) without gradients and returns
     its maps flattened in key order; `layout` receives the (key, count)
     pairs to rebuild the dict. backward re-runs the same forward with
-    gradients on and returns its VJP into x, the context and `params`,
+    gradients on and returns its VJP into x, the conds and `params`,
     where autograd asks for them. Nothing is kept across calls but the
     inputs: the backward recomputes its own residuals."""
 
     @staticmethod
-    def forward(ctx, capture_primal, t, mark, layout, x, context, *params):
-        ctx.capture_primal, ctx.t, ctx.mark = capture_primal, t, mark
-        ctx.save_for_backward(x, context, *params)
-        maps = capture_primal(x, t, context)
+    def forward(ctx, capture_primal, t, mark, layout, n_cond, x, *inputs):
+        ctx.capture_primal, ctx.t, ctx.mark, ctx.n_cond = capture_primal, t, mark, n_cond
+        ctx.save_for_backward(x, *inputs)
+        maps = capture_primal(x, t, *inputs[:n_cond])
         layout[:] = [(key, len(v)) for key, v in maps.items()]
         return tuple(m for v in maps.values() for m in v)
 
     @staticmethod
     def backward(ctx, *gs):
-        x, context, *params = ctx.saved_tensors
-        need = list(ctx.needs_input_grad[4:])
+        x, *inputs = ctx.saved_tensors
+        n = ctx.n_cond
+        need = list(ctx.needs_input_grad[5:])
         ctx.mark("capture_bwd<")
         with torch.enable_grad():
             xs = x.detach().requires_grad_(need[0])
-            c = context.detach().requires_grad_(need[1])
-            maps = ctx.capture_primal(xs, ctx.t, c)
+            conds = [None if c is None else c.detach().requires_grad_(k)
+                     for c, k in zip(inputs[:n], need[1:])]
+            maps = ctx.capture_primal(xs, ctx.t, *conds)
             outs = [m for v in maps.values() for m in v]
             used = [(o, g) for o, g in zip(outs, gs) if g is not None]
-            picked = [w for w, k in zip([xs, c] + list(params), need) if k]
+            picked = [w for w, k in zip([xs, *conds, *inputs[n:]], need) if k]
             grads = iter(torch.autograd.grad(
                 [o for o, _ in used], picked, [g for _, g in used],
                 allow_unused=True))
         out = [next(grads) if k else None for k in need]
         ctx.mark("capture_bwd>")
-        return (None, None, None, None, *out)
+        return (None, None, None, None, None, *out)
 
 
 def _no_mark(name: str) -> None:
@@ -181,6 +185,8 @@ def sample_comat(
     capture_primal: Optional[Callable] = None,
     capture_idx: Optional[Sequence[int]] = None,
     mark: Optional[Callable[[str], None]] = None,
+    pooled: Optional[torch.Tensor] = None,
+    null_pooled: Optional[torch.Tensor] = None,
 ) -> SampleResult:
     """Pass 2 of the CoMat sampler: the differentiable replay from pass
     1's tables (`sample_inference`'s eps table and trajectory, made with
@@ -188,11 +194,15 @@ def sample_comat(
     are differentiable through the K trained steps only.
 
     `diff_eps_model(x, t, context, null_context)` is the differentiable
-    guided eps, reading the trainable tensors `params`. `trained_idx`
+    guided eps, reading the trainable tensors `params`; with SDXL's
+    `pooled` text embeds (and `null_pooled`, the null prompts', None
+    without guidance) `diff_eps_model(x, t, context, null_context, pooled,
+    null_pooled)`, which carries their gradients as the contexts'. `trained_idx`
     holds K ascending step indices, `interval` apart; the replay starts at
     pass 1's latent entering the first of them.
 
-    With `capture_primal(x, t, context) -> {key: [maps]}`, the maps are
+    With `capture_primal(x, t, context) -> {key: [maps]}` (with
+    `pooled`, `capture_primal(x, t, context, pooled)`), the maps are
     captured at the segments `capture_idx` (A indices into the K
     segments, repeats allowed; default all K), each at its segment's entry
     latent and timestep, and returned in `captured`, each map stacked over
@@ -203,14 +213,15 @@ def sample_comat(
     S = len(coeffs.timesteps)
     eps_table, latents_traj = eps_table.detach(), latents_traj.detach()
     trained: List[int] = [int(i) for i in trained_idx]
+    conds = [context, null_context] + ([pooled, null_pooled] if pooled is not None else [])
+    cap_conds = [context] + ([pooled] if pooled is not None else [])
     x = latents_traj[trained[0]]
     entries = []
     for p in trained:
         t = int(coeffs.timesteps[p])
         entries.append(x)
         eps = _CachedPrimalEps.apply(
-            diff_eps_model, t, mark, x, eps_table[p], context, null_context,
-            *params
+            diff_eps_model, t, mark, len(conds), x, eps_table[p], *conds, *params
         )
         x, _ = ddpm_step_from_coeffs(coeffs, p, x, eps, step_noise[p])
         for pos in range(p + 1, min(p + interval, S)):
@@ -229,7 +240,7 @@ def sample_comat(
             layout: List[Tuple[str, int]] = []
             flat = iter(_CaptureOnly.apply(
                 capture_primal, int(coeffs.timesteps[trained[seg]]), mark,
-                layout, entries[seg], context, *params))
+                layout, len(cap_conds), entries[seg], *cap_conds, *params))
             caps.append({key: [next(flat) for _ in range(n)] for key, n in layout})
         if caps:
             captured = {key: [torch.stack([c[key][i] for c in caps])

@@ -16,7 +16,10 @@ latents at the final inference timestep under the null-text condition.
 
 `share_base_unet` makes D's frozen base the generator's own UNet tensors
 (the same objects, not copies), as `trainer.py::_share_base_unet` makes
-D's base the generator's pretrained weights. An SDXL D (same
+D's base the generator's pretrained weights. Under --full_finetuning the
+generator's base trains, so D takes a frozen copy of it instead
+(`copy_base`): JAX copies the values once at init, and the reference
+loads a second UNet for D (gan_sd_model.py:8-13). An SDXL D (same
 architecture as an SDXL generator) takes SDXL's added condition; a
 cross-architecture D (`GanConfig.cross_arch`: the published SDXL recipe's
 SD1.5-architecture D over SDXL latents) owns its own SD1.5 UNet, shares
@@ -35,6 +38,7 @@ from torch import nn
 
 from comat_tpu_torch.config import UNetConfig
 from comat_tpu_torch.models.lora import is_lora_path
+from comat_tpu_torch.models.pipeline import resolve_device
 from comat_tpu_torch.models.unet import UNet2DConditionModel
 from comat_tpu_torch.weights import init_weights_
 
@@ -64,23 +68,28 @@ class Discriminator(nn.Module):
     """D's UNet (`unet`) and head (`head`, None with `lastlayer_cls`).
 
     `base_unet`: a UNet whose non-LoRA tensors D takes as its own (the
-    same Parameter objects) wherever name and shape agree; the other
-    tensors (D's LoRA, the head, a one-channel conv_out) are allocated on
-    `device` and drawn from `seed` (`weights.init_weights_`). Without
-    `base_unet` every tensor is drawn from `seed`. Loading a state dict
-    into a D that shares its base writes into the generator's tensors."""
+    same Parameter objects) wherever name and shape agree, or with
+    `copy_base` frozen copies of their values as they stand (a generator
+    whose base trains, --full_finetuning); the other tensors (D's LoRA,
+    the head, a one-channel conv_out) are allocated on `device` and drawn
+    from `seed` (`weights.init_weights_`). Without `base_unet` every
+    tensor is drawn from `seed`. Loading a state dict into a D that shares
+    its base writes into the generator's tensors. `device`: CUDA unless
+    the caller asks for the CPU (`models.pipeline.resolve_device`)."""
 
     def __init__(self, unet_cfg: UNetConfig, gan_cfg: GanConfig, device=None,
-                 base_unet: Optional[nn.Module] = None, seed: int = 0):
+                 base_unet: Optional[nn.Module] = None, seed: int = 0,
+                 copy_base: bool = False):
         super().__init__()
         self.gan_cfg = gan_cfg
         if gan_cfg.lastlayer_cls:
             unet_cfg = dataclasses.replace(unet_cfg, out_channels=1)
-        device = torch.device("cpu" if device is None else device)
+        device = resolve_device(device)
         with torch.device("meta"):
             self.unet = UNet2DConditionModel(unet_cfg, lora_rank=gan_cfg.lora_rank)
             self.head = None if gan_cfg.lastlayer_cls else DiscriminatorHead()
-        shared = share_base_unet(self.unet, base_unet) if base_unet is not None else set()
+        shared = (share_base_unet(self.unet, base_unet, copy=copy_base)
+                  if base_unet is not None else set())
         for name, p in list(self.named_parameters()):
             if name in shared:
                 continue
@@ -105,16 +114,19 @@ class Discriminator(nn.Module):
         return self.head(eps.float())
 
 
-def share_base_unet(unet: nn.Module, base: nn.Module) -> set:
+def share_base_unet(unet: nn.Module, base: nn.Module, copy: bool = False) -> set:
     """Point every non-LoRA parameter of `unet` at `base`'s parameter of
-    the same name and shape (the same object). Returns the names shared,
-    as `unet`'s parent `Discriminator` names them ("unet.<name>")."""
+    the same name and shape (the same object), or with `copy` at a frozen
+    copy of its value. Returns the names taken, as `unet`'s parent
+    `Discriminator` names them ("unet.<name>")."""
     base_params = dict(base.named_parameters())
     shared = set()
     for name, p in list(unet.named_parameters()):
         src = base_params.get(name)
         if is_lora_path(name) or src is None or src.shape != p.shape:
             continue
+        if copy:
+            src = nn.Parameter(src.detach().clone(), requires_grad=False)
         *path, leaf = name.split(".")
         setattr(unet.get_submodule(".".join(path)), leaf, src)
         shared.add(f"unet.{name}")

@@ -10,7 +10,11 @@ input to the last layer, without the final LayerNorm, as SDXL reads both
 towers (transformers' `hidden_states[-2]`). Parameter names follow
 transformers' CLIPTextModel(WithProjection) (`text_model.embeddings...`,
 `text_model.encoder.layers.{i}...`, `text_model.final_layer_norm`,
-`text_projection`).
+`text_projection`). With `lora_rank > 0` (--train_text_encoder_lora) the
+attention projections `q_proj`, `k_proj`, `v_proj` and `out_proj` carry a
+LoRA branch (`models.lora.LoRALinear`: the projection under `.base`, the
+fp32 factors `lora_a` / `lora_b`), as JAX's `LoRADense` does; at rank 0
+they are plain `nn.Linear`s under transformers' names.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from comat_tpu_torch.config import CLIPTextConfig
+from comat_tpu_torch.models.lora import LoRALinear
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -29,15 +34,19 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, device=None):
+    def __init__(self, cfg: CLIPTextConfig, device=None, lora_rank: int = 0):
         super().__init__()
         kw = dict(dtype=cfg.dtype, device=device)
         D = cfg.hidden_size
         self.num_heads = cfg.num_heads
-        self.q_proj = nn.Linear(D, D, **kw)
-        self.k_proj = nn.Linear(D, D, **kw)
-        self.v_proj = nn.Linear(D, D, **kw)
-        self.out_proj = nn.Linear(D, D, **kw)
+
+        def proj():
+            if lora_rank > 0:
+                return LoRALinear(D, D, lora_rank=lora_rank, **kw)
+            return nn.Linear(D, D, **kw)
+
+        self.q_proj, self.k_proj, self.v_proj, self.out_proj = (
+            proj(), proj(), proj(), proj())
 
     def forward(self, x: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
         B, S, D = x.shape
@@ -68,11 +77,11 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, device=None):
+    def __init__(self, cfg: CLIPTextConfig, device=None, lora_rank: int = 0):
         super().__init__()
         kw = dict(dtype=cfg.dtype, device=device)
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
-        self.self_attn = CLIPAttention(cfg, device)
+        self.self_attn = CLIPAttention(cfg, device, lora_rank)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.mlp = CLIPMLP(cfg, device)
 
@@ -99,18 +108,18 @@ class CLIPEmbeddings(nn.Module):
 
 
 class CLIPEncoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, device=None):
+    def __init__(self, cfg: CLIPTextConfig, device=None, lora_rank: int = 0):
         super().__init__()
         self.layers = nn.ModuleList(
-            [CLIPEncoderLayer(cfg, device) for _ in range(cfg.num_layers)]
+            [CLIPEncoderLayer(cfg, device, lora_rank) for _ in range(cfg.num_layers)]
         )
 
 
 class CLIPTextTransformer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig, device=None):
+    def __init__(self, cfg: CLIPTextConfig, device=None, lora_rank: int = 0):
         super().__init__()
         self.embeddings = CLIPEmbeddings(cfg, device)
-        self.encoder = CLIPEncoder(cfg, device)
+        self.encoder = CLIPEncoder(cfg, device, lora_rank)
         self.final_layer_norm = nn.LayerNorm(
             cfg.hidden_size, eps=1e-5, dtype=cfg.dtype, device=device
         )
@@ -123,10 +132,11 @@ class CLIPTextEncoder(nn.Module):
     LayerNorm), and the final states at each row's EOS position (default
     S - 1), through `text_projection` where the config has one."""
 
-    def __init__(self, cfg: CLIPTextConfig, device=None):
+    def __init__(self, cfg: CLIPTextConfig, device=None, lora_rank: int = 0):
         super().__init__()
         self.cfg = cfg
-        self.text_model = CLIPTextTransformer(cfg, device)
+        self.lora_rank = lora_rank
+        self.text_model = CLIPTextTransformer(cfg, device, lora_rank)
         self.text_projection = None
         if cfg.projection_dim is not None:
             self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim,

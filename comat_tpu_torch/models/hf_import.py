@@ -2,12 +2,14 @@
 
 The port's counterpart of comat_tpu/models/hf_import.py (`load_sd_params`,
 `load_unet_params`, `load_blip_params`, `load_blip_vqa_params`,
-`load_lora_safetensors`, `alias_diffusers_lora_keys`,
+`load_lora_safetensors` (and `load_lora_state`, which also reads the
+text towers' LoRA), `alias_diffusers_lora_keys`,
 `_load_safetensors_dir`, `_alias_tied_blip`), read from it and not
 imported. The port's modules carry diffusers' and transformers'
 state-dict names, so a snapshot's tensors need only a few renames and
 reshapes (`unet_from_diffusers`, `vae_from_diffusers`, `clip_from_hf`,
-`blip_from_hf`, `blip_vqa_from_hf`); `load_into` then copies them into a
+`blip_from_hf`, `blip_vqa_from_hf`; a text tower that carries LoRA keeps
+its projections under `.base`, `clip_lora_names`); `load_into` then copies them into a
 module in place, tensor by tensor, from the file's memory map to the
 parameter's device and dtype. It never replaces a `Parameter` object, so
 what shares a tower's tensors (a discriminator's base, `share_base_unet`)
@@ -166,12 +168,29 @@ def vae_from_diffusers(tensors: Mapping[str, np.ndarray]) -> Dict[str, np.ndarra
     return out
 
 
-def clip_from_hf(tensors: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+_CLIP_PROJ = re.compile(r"(.+\.self_attn\.(?:q|k|v|out)_proj)\.(weight|bias)")
+
+
+def clip_lora_names(tensors: Mapping[str, object]) -> Dict[str, object]:
+    """CLIP tensors under the names of a tower that carries LoRA
+    (`CLIPTextEncoder(lora_rank > 0)`): each attention projection's
+    weight and bias move under `.base`, as `unet_from_diffusers` moves the
+    UNet's."""
+    out = {}
+    for name, value in tensors.items():
+        m = _CLIP_PROJ.fullmatch(name)
+        out[f"{m.group(1)}.base.{m.group(2)}" if m else name] = value
+    return out
+
+
+def clip_from_hf(tensors: Mapping[str, np.ndarray], lora: bool = False) -> Dict[str, np.ndarray]:
     """A transformers CLIPTextModel's (or CLIPTextModelWithProjection's)
     tensors under the port CLIP's names: the same (`text_model.*`, and
     bigG's `text_projection.weight` (proj, hidden), as the port's
-    nn.Linear holds it), without the `position_ids` buffers."""
-    return {k: v for k, v in tensors.items() if not k.endswith("position_ids")}
+    nn.Linear holds it), without the `position_ids` buffers; `lora`: for
+    a tower that carries LoRA (`clip_lora_names`)."""
+    out = {k: v for k, v in tensors.items() if not k.endswith("position_ids")}
+    return clip_lora_names(out) if lora else out
 
 
 def blip_from_hf(tensors: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -198,8 +217,12 @@ def blip_from_hf(tensors: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
 blip_vqa_from_hf = blip_from_hf
 
 
-_TOWER_NAMES = {"unet": unet_from_diffusers, "vae": vae_from_diffusers,
-                "text": clip_from_hf, "text2": clip_from_hf}
+def _tower_names(tower: str, module: nn.Module):
+    """The rename of `tower`'s snapshot tensors into `module`'s names."""
+    if tower in ("text", "text2"):
+        return lambda t: clip_from_hf(t, lora=getattr(module, "lora_rank", 0) > 0)
+    return {"unet": unet_from_diffusers, "vae": vae_from_diffusers}[tower]
+
 
 # a LoRA factor in the reference's LoraLoaderMixin layout (what
 # `checkpoints.export_lora_safetensors` writes) and in the attn-processor
@@ -208,16 +231,28 @@ _LORA_MIXIN = re.compile(r"unet\.(.+\.attn[12]\.(?:to_q|to_k|to_v|to_out\.0))"
                          r"\.lora\.(down|up)\.weight")
 _LORA_PROCESSOR = re.compile(r"(?:unet\.)?(.+\.attn[12])\.processor\.(to_q|to_k|to_v|to_out)"
                              r"_lora\.(down|up)\.weight")
+# a text tower's factor: the reference's LoraLoaderMixin writes
+# `.lora_linear_layer.{down,up}` (what the port exports), JAX's exporter
+# `.lora.{down,up}` (comat_tpu/models/hf_import.py:617)
+_LORA_TEXT = re.compile(r"(text_encoder(?:_2)?)\.(text_model\.encoder\.layers\.\d+\.self_attn"
+                        r"\.(?:q|k|v|out)_proj)\.(?:lora_linear_layer|lora)\.(down|up)\.weight")
+_TEXT_LORA_TOWERS = {"text_encoder": "text", "text_encoder_2": "text2"}
 
 
 def lora_from_diffusers(tensors: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """A pytorch_lora_weights.safetensors' UNet factors under the port's
+    """A pytorch_lora_weights.safetensors' LoRA factors under the port's
     names, down (rank, in) -> `lora_a` (in, rank) and up (out, rank) ->
-    `lora_b` (rank, out); other tensors keep their names."""
+    `lora_b` (rank, out): the UNet's under the UNet's names, the text
+    towers' under "text.<name>" / "text2.<name>" (either spelling,
+    `_LORA_TEXT`); other tensors keep their names."""
     out = {}
     for name, value in tensors.items():
         m = _LORA_MIXIN.fullmatch(name)
-        if m:
+        t = _LORA_TEXT.fullmatch(name)
+        if t:
+            enc, module, dd = t.groups()
+            module = f"{_TEXT_LORA_TOWERS[enc]}.{module}"
+        elif m:
             module, dd = m.groups()
         else:
             m = _LORA_PROCESSOR.fullmatch(name)
@@ -314,17 +349,19 @@ def load_sd_state(snapshot_dir: str, pipeline, keep_masters: Sequence[str] = ()
             reports[tower] = LoadReport(missing=[n for n in module.state_dict()
                                                  if not is_lora_path(n)])
             continue
-        reports[tower] = load_into(module, _TOWER_NAMES[tower](load_safetensors_dir(d)),
+        reports[tower] = load_into(module, _tower_names(tower, module)(load_safetensors_dir(d)),
                                    keep_masters=tower in keep_masters, prefix=f"{tower}.")
     return reports
 
 
-def load_unet_state(path: str, unet: nn.Module) -> LoadReport:
+def load_unet_state(path: str, unet: nn.Module, keep_masters: bool = False) -> LoadReport:
     """A diffusers UNet, a .safetensors file or a folder of them (its
     `unet/` folder), into `unet` in place (the counterpart of
-    `hf_import.load_unet_params` :528; --sdxl_unet_path)."""
+    `hf_import.load_unet_params` :528; --sdxl_unet_path). `keep_masters`:
+    the fp32 values under "unet.<name>" (--full_finetuning)."""
     tensors = load_safetensors_dir(path) if os.path.isdir(path) else load_safetensors(path)
-    return load_into(unet, unet_from_diffusers(tensors))
+    return load_into(unet, unet_from_diffusers(tensors), keep_masters=keep_masters,
+                     prefix="unet.")
 
 
 def load_blip_state(snapshot_dir: str, blip: nn.Module) -> LoadReport:
@@ -352,10 +389,43 @@ def load_lora_safetensors(path: str, unet: nn.Module) -> LoadReport:
     return load_into(unet, lora_from_diffusers(load_safetensors(path)), lora=True)
 
 
-def lora_rank(path: str) -> int:
-    """The rank of a pytorch_lora_weights.safetensors' UNet factors, from
-    its shapes (0 when it holds none)."""
+def load_lora_state(path: str, pipeline) -> Dict[str, LoadReport]:
+    """A pytorch_lora_weights.safetensors as the port's trainer exports it
+    into `pipeline` in place, each tower's `LoadReport` by name: the UNet's
+    LoRA factors ("unet", `missing` lists those the file lacks), the text
+    towers' LoRA factors in either spelling, and the tensors of towers
+    trained whole (--tune_vae, --tune_text_encoder, --full_finetuning),
+    which the trainer writes under the port's names ("vae.<name>",
+    "text.<name>", "unet.<name>"). A text tower with LoRA factors in the
+    file reports those the file lacks, one without the tensors it lacks;
+    the file's tensors no tower holds are the UNet report's `unused`. JAX's loader reads the UNet's factors alone
+    (comat_tpu/models/hf_import.py:621); the port loads the text LoRA as
+    the reference's LoraLoaderMixin does."""
+    tensors = lora_from_diffusers(load_safetensors(path))
+    reports = {}
+    for tower in ("text", "text2", "vae"):
+        module = getattr(pipeline, tower, None)
+        pre = tower + "."
+        own = {n[len(pre):]: tensors.pop(n) for n in list(tensors) if n.startswith(pre)}
+        if module is None or not own:
+            tensors.update({pre + n: v for n, v in own.items()})
+            continue
+        reports[tower] = load_into(module, own, lora=any(is_lora_path(n) for n in own),
+                                   prefix=pre)
+    whole = {n[len("unet."):]: tensors.pop(n) for n in list(tensors)
+             if n.startswith("unet.")}
+    reports["unet"] = load_into(pipeline.unet, {**tensors, **whole}, lora=True)
+    return reports
+
+
+def lora_rank(path: str, tower: str = "unet") -> int:
+    """The rank of a pytorch_lora_weights.safetensors' LoRA factors of
+    `tower` ("unet", "text" or "text2"), from their shapes (0 when it
+    holds none)."""
     for name, value in lora_from_diffusers(load_safetensors(path)).items():
-        if name.endswith(".lora_a"):
+        if not name.endswith(".lora_a"):
+            continue
+        owner = name.split(".", 1)[0]
+        if owner == tower or (tower == "unet" and owner not in ("text", "text2")):
             return int(value.shape[1])
     return 0

@@ -8,13 +8,18 @@ presample / generate`) for SD1.5 and SDXL and their tiny test geometries.
 SDXL runs two text towers (CLIP-L and OpenCLIP bigG, `text2`), reads
 the penultimate states of both, concatenated, and conditions the UNet on
 the projected pooled output of the second and the six size and crop ids
-(`sdxl_added_cond`), guided null first like the context. The added
-condition enters the replay and the capture forwards as a constant: no
-gradient flows to it. The pipeline owns its modules and their
+(`sdxl_added_cond`), guided null first like the context. The pooled
+embeds enter the replay and the capture ops as inputs beside the
+contexts, so a trained second tower (`text2`) gets their gradient, as
+JAX's `diff_tree["added"]` carries it. With `text_lora_rank > 0`
+(--train_text_encoder_lora) both text towers carry LoRA on their
+attention projections. The pipeline owns its modules and their
 weights on one device: CUDA unless the caller asks for the CPU. Every
 module is built frozen (`requires_grad` off); the train step marks the
 trainable tensors (`training.train_step.partition_params`), and
-`forward` differentiates with respect to those of the UNet; with
+`forward` differentiates with respect to those of the UNet (through
+their fp32 masters where `set_masters` gave them: --full_finetuning of
+the bf16 UNet); with
 `capture=True` it also returns the cross-attention maps of the layers
 `cfg.capture_layers` at the chosen replay segments (attribute
 concentration). `forward(remat=)` and `DiffusionPipeline(fuse_pass1=False)`
@@ -62,6 +67,9 @@ class PipelineConfig:
     capture_layers: Tuple[str, ...] = ()
     lora_rank: int = 32
     resolution: int = 512
+    # --train_text_encoder_lora: the text towers' LoRA rank (JAX's
+    # `text_lora_rank`; the trainer passes --lora_rank)
+    text_lora_rank: int = 0
 
     @property
     def latent_size(self) -> int:
@@ -80,15 +88,16 @@ TINY_XL_CAPTURE = ("mid_4", "up_4", "up_8")
 
 def make_pipeline_config(
     name: str, lora_rank: int = 32, resolution: int = 512, tiny: bool = False,
+    text_lora_rank: int = 0,
 ) -> PipelineConfig:
     """`sd_1_5*` and `sdxl*` (sdxl, sdxl_unet, sdxl_attrcon,
     sdxl_attrcon_unet) at full or tiny width. A name with "attrcon" turns
     attribute concentration on (`attrcon`); every name carries its
     family's capture layer list, as in JAX. The tiny SDXL UNet's context
     is the two tiny towers' concatenation (32 + 32), as the real one's is
-    768 + 1280."""
+    768 + 1280. `text_lora_rank`: LoRA on both text towers (0: none)."""
     kw = dict(attrcon="attrcon" in name, lora_rank=lora_rank,
-              resolution=resolution)
+              resolution=resolution, text_lora_rank=text_lora_rank)
     if name.startswith("sdxl"):
         if tiny:
             return PipelineConfig(
@@ -167,9 +176,10 @@ class DiffusionPipeline:
     `params` is {"unet", "text", "vae"} state dicts, and "text2" for
     SDXL (as `state_dicts()` returns or `weights.from_jax_params` makes);
     without it the weights are drawn from `seed` (`weights.init_weights_`):
-    the towers first, then the UNet's LoRA factors, so that a seed gives
-    the towers the same weights at every LoRA rank (`hf_import.load_sd_state`
-    loads a diffusers snapshot over them).
+    the towers first, then the UNet's LoRA factors, then the text towers',
+    so that a seed gives the towers the same weights at every LoRA rank and
+    the UNet's factors the same at every text-LoRA rank
+    (`hf_import.load_sd_state` loads a diffusers snapshot over them).
 
     `fuse_pass1=False` (JAX's memory-tight flag, --gradient_checkpointing)
     builds no LoRA-free twin `unet_inf`: it would hold a second copy of
@@ -192,20 +202,26 @@ class DiffusionPipeline:
         # LoRA-free twin for sampling, loaded by fused_unet()
         self.unet_inf = self.unet if cfg.lora_rank == 0 else (
             self._twin() if fuse_pass1 else None)
-        self.text = _build(lambda: CLIPTextEncoder(cfg.text), self.device)
+        self.text = _build(lambda: CLIPTextEncoder(cfg.text, lora_rank=cfg.text_lora_rank),
+                           self.device)
         self.vae = _build(lambda: AutoencoderKL(cfg.vae), self.device)
         self.text2 = None if cfg.text2 is None else _build(
-            lambda: CLIPTextEncoder(cfg.text2), self.device)
+            lambda: CLIPTextEncoder(cfg.text2, lora_rank=cfg.text_lora_rank), self.device)
         self.schedule: DiffusionSchedule = make_schedule()
-        # fp32 masters of bf16 trained tensors by name ("text.<name>",
-        # "vae.<name>"), set by the train state (`set_masters`)
+        # fp32 masters of bf16 trained tensors by name ("unet.<name>",
+        # "text.<name>", "vae.<name>"), set by the train state (`set_masters`)
         self.masters: Dict[str, torch.Tensor] = {}
         if params is None:
             g = torch.Generator(device=self.device).manual_seed(seed)
-            lora = {n for n, _ in self.unet.named_parameters() if is_lora_path(n)}
-            for module in self._towers().values():
-                init_weights_(module, g, skip=lora if module is self.unet else ())
-            init_weights_(self.unet, g, skip=set(self.unet.state_dict()) - lora)
+            towers = self._towers()
+            lora = {name: {n for n, _ in m.named_parameters() if is_lora_path(n)}
+                    for name, m in towers.items()}
+            for name, module in towers.items():
+                init_weights_(module, g, skip=lora[name])
+            for name in ("unet", "text", "text2"):
+                if lora.get(name):
+                    module = towers[name]
+                    init_weights_(module, g, skip=set(module.state_dict()) - lora[name])
         else:
             self.load_params(params)
 
@@ -227,10 +243,12 @@ class DiffusionPipeline:
                       self.device)
 
     def set_masters(self, masters: Mapping[str, torch.Tensor]) -> None:
-        """fp32 masters of bf16 trained tensors by name ("text.<name>",
-        "vae.<name>"): each use of such a tensor where autograd records
-        runs on its own view (`_MasterView`), and its gradient lands on
-        the master in fp32."""
+        """fp32 masters of bf16 trained tensors by name ("unet.<name>",
+        "text.<name>", "text2.<name>", "vae.<name>"): each use of such a
+        tensor where autograd records runs on its own view (`_MasterView`),
+        and its gradient lands on the master in fp32. The replay and the
+        capture ops take the UNet's masters as their inputs, so the K
+        segments' and the A captures' gradients sum in fp32 there."""
         self.masters = dict(masters)
 
     def _tower(self, name: str, module: torch.nn.Module, *args, **kwargs):
@@ -284,10 +302,6 @@ class DiffusionPipeline:
         """The prompts' and the null prompts' encodings, and with SDXL their
         added conditions (else None), as JAX's forward makes them: the null
         prompts' tower 2 reads `null_ids2`, else `null_ids`."""
-        if self.cfg.is_sdxl and train_text_encoder:
-            raise NotImplementedError(
-                "train_text_encoder with SDXL: the pooled embed's gradient through "
-                "the added condition is not carried")
         # input_ids2 only where given: the SD1.5 call keeps its three arguments
         kw = {} if input_ids2 is None else {"input_ids2": input_ids2}
         nkw = {} if null_ids2 is None else {"input_ids2": null_ids2}
@@ -308,12 +322,14 @@ class DiffusionPipeline:
         `cfg.capture_layers`). `added_cond`: SDXL's (`sdxl_added_cond`).
         `fused=True` runs the LoRA-free twin, which must hold the fused
         weights (`fused_unet()` loads them). `remat`: block checkpointing
-        (`UNet2DConditionModel.forward`)."""
-        unet = self.unet_inf if fused else self.unet
-        if capture:
-            return unet(latents, t, context, added_cond, capture=True,
-                        capture_layers=self.cfg.capture_layers, remat=remat)
-        return unet(latents, t, context, added_cond, remat=remat)
+        (`UNet2DConditionModel.forward`). The LoRA'd UNet runs through the
+        fp32 masters of its trained bf16 tensors where autograd records
+        (`set_masters`)."""
+        kw = dict(capture=True, capture_layers=self.cfg.capture_layers) if capture else {}
+        if fused:
+            return self.unet_inf(latents, t, context, added_cond, remat=remat, **kw)
+        return self._tower("unet", self.unet, latents, t, context, added_cond,
+                           remat=remat, **kw)
 
     def decode_image(self, latents: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """latents (B, h, w, 4) -> image (B, 8h, 8w, 3) as
@@ -383,8 +399,10 @@ class DiffusionPipeline:
         image (B, H, W, 3) in [0, 1], unclamped, differentiable through the
         K trained steps and the VAE decode with respect to every UNet
         tensor that requires grad (the LoRA factors in the default
-        recipe), the VAE's where they require grad, and the text
-        encoder's under `train_text_encoder` (SD1.5 only). SDXL: tower 2
+        recipe, the whole UNet under --full_finetuning, through its fp32
+        masters), the VAE's where they require grad, and the text
+        towers' under `train_text_encoder` (with SDXL both, the second
+        through the pooled embeds too). SDXL: tower 2
         reads `input_ids2` / `null_ids2` where given (else `input_ids` /
         `null_ids`), and the null prompts' pooled embed is taken at
         `null_eos_positions`, S - 1 when None, as in JAX. Pass 1 runs without
@@ -440,27 +458,40 @@ class DiffusionPipeline:
         if mark is not None:
             mark("pass1")
 
-        def diff_eps_model(lat, t, context, null_context):
+        guided = guidance_scale > 1.0
+        # SDXL: the pooled embeds are the ops' inputs, the size ids constants
+        pooled = null_pooled = None
+        if added is not None:
+            pooled = added["text_embeds"]
+            null_pooled = null_added["text_embeds"] if guided else None
+
+        def with_pooled(ac: AddedCond, p):
+            return None if ac is None or p is None else {**ac, "text_embeds": p}
+
+        def diff_eps_model(lat, t, context, null_context, p=None, null_p=None):
             return make_cfg_eps_model(
                 lambda l, tt, ctx, *ac: self.unet_apply(l, tt, ctx, *ac, remat=remat),
                 context, null_context, guidance_scale, guidance_rescale,
-                added, null_added,
+                with_pooled(added, p), with_pooled(null_added, null_p),
             )(lat, t)
 
         capture_primal = None
         if capture:
             cap_dtype = cfg.unet.dtype
 
-            def capture_primal(lat, t, context):
-                _, maps = self.unet_apply(lat, t, context, added, capture=True)
+            def capture_primal(lat, t, context, p=None):
+                _, maps = self.unet_apply(lat, t, context, with_pooled(added, p),
+                                          capture=True)
                 return {key: [m.to(cap_dtype) for m in v] for key, v in maps.items()}
 
+        # the trained UNet tensors, each through its fp32 master where it has one
+        params = [self.masters.get(f"unet.{n}", p)
+                  for n, p in self.unet.named_parameters() if p.requires_grad]
         result = sample_comat(
             diff_eps_model, coeffs, eps_table, traj, step_noise, trained_idx,
-            num_inference_steps // K, enc.context,
-            nenc.context if guidance_scale > 1.0 else None,
-            [p for p in self.unet.parameters() if p.requires_grad],
-            capture_primal=capture_primal, capture_idx=capture_idx, mark=mark,
+            num_inference_steps // K, enc.context, nenc.context if guided else None,
+            params, capture_primal=capture_primal, capture_idx=capture_idx, mark=mark,
+            pooled=pooled, null_pooled=null_pooled,
         )
         latents = result.latents
         if mark is not None:

@@ -80,7 +80,7 @@ class Sampler(NamedTuple):
 
 def load_sampler(args, what: str) -> Sampler:
     """The pipeline of --model at --resolution on --device, its towers and
-    --checkpoint's LoRA loaded as `tools/generate.py` loads them (the rank
+    --checkpoint's LoRA loaded as `tools/generate.py` loads them (the ranks
     read from the file), its tokenizers, fused UNet and generator. A
     full-size run without --pretrain-model or CLIP tokenizer files goes
     through the smoke gate; `what` names the output in its message."""
@@ -90,12 +90,12 @@ def load_sampler(args, what: str) -> Sampler:
     from comat_tpu_torch.text.tokenizer import HashTokenizer, load_clip_tokenizer
     from comat_tpu_torch.tools.generate import _load_weights, lora_checkpoint, smoke_gate
 
-    lora_path, rank = lora_checkpoint(args.checkpoint)
+    lora_path, rank, text_rank = lora_checkpoint(args.checkpoint)
     if not args.tiny and not args.pretrain_model:
         smoke_gate(args.allow_smoke, f"no --pretrain-model: {what} would come from "
                    f"towers seeded by --seed {args.seed}")
-    pcfg = make_pipeline_config(args.model, lora_rank=rank, resolution=args.resolution,
-                                tiny=args.tiny)
+    pcfg = make_pipeline_config(args.model, lora_rank=rank, text_lora_rank=text_rank,
+                                resolution=args.resolution, tiny=args.tiny)
     tok = (HashTokenizer(pcfg.text.vocab_size) if args.tiny
            else load_clip_tokenizer(args.tokenizer_dir))
     if not args.tiny and isinstance(tok, HashTokenizer):

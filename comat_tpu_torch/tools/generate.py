@@ -7,9 +7,9 @@ reading the pad-id-0 tokenizer's ids). The towers load from the diffusers
 snapshot `--pretrain-model` names (a folder, or a repo id resolved
 through `--cache-dir`'s hub cache), else keep weights drawn from `--seed`;
 `--checkpoint` puts a trained LoRA over them: a checkpoint folder of the
-port's trainer (its `pytorch_lora_weights.safetensors`, with the towers it
-trained) or such a file, its rank read from the file. Sampling runs the
-UNet with the LoRA folded in. Examples:
+port's trainer (its `pytorch_lora_weights.safetensors`, with the text
+towers' LoRA and the towers it trained whole) or such a file, the ranks
+read from the file. Sampling runs the UNet with the LoRA folded in. Examples:
 
     python -m comat_tpu_torch.tools.generate --tiny --device cpu \\
         --prompt "a red cube"
@@ -72,7 +72,6 @@ def _load_weights(args, pipe, lora_path) -> None:
     """The snapshot, then the checkpoint, into `pipe` in place; a tensor
     either lacks raises. Prints the bytes and seconds of the loads."""
     from comat_tpu_torch.models import hf_import
-    from comat_tpu_torch.training.checkpoints import load_safetensors
 
     reports = []
     if args.pretrain_model:
@@ -91,19 +90,11 @@ def _load_weights(args, pipe, lora_path) -> None:
     else:
         print(f"no --pretrain-model: the towers keep weights drawn from --seed {args.seed}")
     if lora_path:
-        # the UNet's factors, and the towers the trainer trained, exported
-        # under the port's own names ("vae.<name>", "text.<name>")
-        tensors = load_safetensors(lora_path)
-        bad = []
-        for tower in ("vae", "text", "text2"):
-            own = {n[len(tower) + 1:]: tensors.pop(n) for n in list(tensors)
-                   if n.startswith(tower + ".")}
-            if own:
-                reports.append(hf_import.load_into(getattr(pipe, tower), own))
-                bad += reports[-1].unused
-        reports.append(hf_import.load_into(pipe.unet, hf_import.lora_from_diffusers(tensors),
-                                           lora=True))
-        bad += reports[-1].missing + reports[-1].unused
+        # the UNet's and the text towers' factors, and the towers the
+        # trainer trained whole, exported under the port's own names
+        lora_reports = hf_import.load_lora_state(lora_path, pipe)
+        bad = [n for r in lora_reports.values() for n in r.missing + r.unused]
+        reports += lora_reports.values()
         if bad:
             raise ValueError(f"{lora_path}: {len(bad)} tensors missing or not the "
                              f"pipeline's (first: {bad[:5]})")
@@ -113,12 +104,13 @@ def _load_weights(args, pipe, lora_path) -> None:
               f"{sum(r.copy_s for r in reports):.3f} s")
 
 
-def lora_checkpoint(checkpoint: Optional[str]) -> Tuple[Optional[str], int]:
-    """(the LoRA file, its rank) of --checkpoint: the trainer's checkpoint
-    folder (its pytorch_lora_weights.safetensors) or such a file; (None,
-    0) without one. A file without UNet factors raises."""
+def lora_checkpoint(checkpoint: Optional[str]) -> Tuple[Optional[str], int, int]:
+    """(the LoRA file, its UNet rank, its text towers' rank) of
+    --checkpoint: the trainer's checkpoint folder (its
+    pytorch_lora_weights.safetensors) or such a file; (None, 0, 0)
+    without one. A file without UNet factors raises."""
     if not checkpoint:
-        return None, 0
+        return None, 0, 0
     from comat_tpu_torch.models.hf_import import lora_rank
 
     path = (os.path.join(checkpoint, "pytorch_lora_weights.safetensors")
@@ -126,7 +118,7 @@ def lora_checkpoint(checkpoint: Optional[str]) -> Tuple[Optional[str], int]:
     rank = lora_rank(path)
     if not rank:
         raise ValueError(f"--checkpoint {path}: no UNet LoRA factors")
-    return path, rank
+    return path, rank, lora_rank(path, "text")
 
 
 def smoke_gate(allow_smoke: bool, why: str) -> None:
@@ -150,9 +142,10 @@ def main(argv=None) -> Tuple["torch.Tensor", Dict[str, float]]:
     )
     from comat_tpu_torch.text.tokenizer import HashTokenizer, load_clip_tokenizer
 
-    lora_path, rank = lora_checkpoint(args.checkpoint)
+    lora_path, rank, text_rank = lora_checkpoint(args.checkpoint)
     pcfg = make_pipeline_config(
-        args.model, lora_rank=rank, resolution=args.resolution, tiny=args.tiny,
+        args.model, lora_rank=rank, text_lora_rank=text_rank,
+        resolution=args.resolution, tiny=args.tiny,
     )
     pipe = DiffusionPipeline(pcfg, device=args.device, seed=args.seed)
     _load_weights(args, pipe, lora_path)

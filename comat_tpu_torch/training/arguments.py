@@ -16,25 +16,14 @@ import re
 import shlex
 from typing import List
 
-_SURFACES = "ROADMAP Queue 1: trainable surfaces and the optimizer"
-
-
 def _check_ported(args) -> None:
     """Raise for a set flag whose path is not ported, naming its item."""
     unported = [
-        ("--full_finetuning", args.full_finetuning, _SURFACES),
-        ("--train_text_encoder_lora", args.train_text_encoder_lora, _SURFACES),
-        ("--use_8bit_adam", args.use_8bit_adam,
-         "ROADMAP Queue 1: opt-in extras (8-bit Adam)"),
         ("--pass1_int8", args.pass1_int8, "ROADMAP Queue 1: opt-in extras (W8A8 pass 1)"),
         ("--prediction_type", args.prediction_type not in (None, "epsilon"),
          "ROADMAP Queue 1: opt-in extras (v-prediction)"),
         ("--mesh_model_axis", args.mesh_model_axis > 1,
          "ROADMAP Queue 1: opt-in extras (parallel/tp.py)"),
-        # the pooled embed enters SDXL's replay as a constant
-        ("--tune_text_encoder with an SDXL model",
-         args.tune_text_encoder and args.pretrain_model_name.startswith("sdxl"),
-         _SURFACES),
     ]
     for flag, is_set, item in unported:
         if is_set:

@@ -5,17 +5,24 @@ reference's layout (training_script.py:382-426, 156-205):
 `<output_dir>/checkpoint-{step}/` directories, a `latest` resume that
 sorts them by step, and `checkpoints_total_limit` pruning of the oldest.
 A checkpoint holds, beside `metadata.json` ({"step": n}), one `state.pt`
-(torch.save): the generator's and the discriminator's trainable tensors,
-the optimizers' state (the fp32 masters of bf16 tensors, AdamW's moments
-and steps, the update count and, under gradient accumulation, the running
-mean of the gradients and the micro-step counter), the `torch.Generator`
+(torch.save): the generator's and the discriminator's trainable tensors
+that are their own fp32 masters, the optimizers' state (the fp32 masters
+of bf16 tensors, from which restore writes their bf16 working copies;
+AdamW's moments and steps, int8 with --use_8bit_adam; the update count
+and, under gradient accumulation, the running mean of the gradients and
+the micro-step counter), the `torch.Generator`
 state the step draws come from (the counterpart of the JAX rng key) and
 what the trainer adds (`extra`). Single process: no barriers.
 
 `export_lora_safetensors` writes `pytorch_lora_weights.safetensors` with
 the reference's keys and orientation (`unet.<module>.lora.{down,up}.weight`,
 down (rank, in), up (out, rank)), the port's copy of JAX's
-`export_lora_safetensors` and `hf_import.diffusers_lora_export_name`.
+`export_lora_safetensors` and `hf_import.diffusers_lora_export_name`; the
+text towers' factors (--train_text_encoder_lora) under the keys the
+reference's LoraLoaderMixin writes,
+`text_encoder[_2].text_model.encoder.layers.N.self_attn.<proj>.lora_linear_layer.{down,up}.weight`
+(JAX writes `.lora.{down,up}` there, comat_tpu/models/hf_import.py:617;
+the port writes what diffusers loads, and reads both).
 The safetensors format is written and read by hand (`save_safetensors`,
 `load_safetensors`): an 8-byte little-endian header length, a JSON header
 of dtype, shape and `data_offsets`, then the raw little-endian bytes.
@@ -34,6 +41,9 @@ import numpy as np
 import torch
 
 _LORA_RE = re.compile(r"unet\.(.+\.attn[12]\.(?:to_q|to_k|to_v|to_out\.0))\.lora_([ab])")
+_TEXT_LORA_RE = re.compile(r"(text2?)\.(text_model\.encoder\.layers\.\d+\.self_attn"
+                           r"\.(?:q|k|v|out)_proj)\.lora_([ab])")
+_TEXT_ENCODERS = {"text": "text_encoder", "text2": "text_encoder_2"}
 
 
 def _ckpt_dirs(output_dir: str):
@@ -54,7 +64,11 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
 
 
 def _trainable(state) -> Dict[str, torch.Tensor]:
-    return {n: p.detach() for n, p in state.trainable.items()}
+    """The trainable tensors a checkpoint keeps itself: those that are
+    their own fp32 masters. A bf16 working copy is its master rounded, and
+    its master is in the optimizer's state."""
+    masters = state.optimizer.masters
+    return {n: p.detach() for n, p in state.trainable.items() if masters[n] is p}
 
 
 def save_checkpoint(
@@ -94,18 +108,27 @@ def restore_checkpoint(
 ) -> Tuple[int, Dict[str, Any]]:
     """Load a checkpoint into `state` (and `d_state`, `generator`) in
     place: the trainable tensors, then the optimizer state, which writes
-    each bf16 working copy from its restored master. Returns (step, the
-    trainer's `extra`)."""
+    each bf16 working copy from its restored master. A trainable tensor
+    the checkpoint holds neither itself nor a master of raises. Returns
+    (step, the trainer's `extra`)."""
     device = next(iter(state.trainable.values())).device
     payload = torch.load(os.path.join(path, "state.pt"), map_location=device,
                          weights_only=True)
-    for n, p in state.trainable.items():
-        p.copy_(payload["trainable"][n])
-    state.optimizer.load_state_dict(payload["optimizer"])
+
+    def load(st, tensors, opt_state):
+        lacking = [n for n in st.trainable
+                   if n not in tensors and n not in opt_state["masters"]]
+        if lacking:
+            raise KeyError(f"{path}: no value for {len(lacking)} trainable tensors "
+                           f"(first: {lacking[:3]})")
+        for n, p in st.trainable.items():
+            if n in tensors:
+                p.copy_(tensors[n])
+        st.optimizer.load_state_dict(opt_state)
+
+    load(state, payload["trainable"], payload["optimizer"])
     if d_state is not None:
-        for n, p in d_state.trainable.items():
-            p.copy_(payload["d_trainable"][n])
-        d_state.optimizer.load_state_dict(payload["d_optimizer"])
+        load(d_state, payload["d_trainable"], payload["d_optimizer"])
     if generator is not None:
         generator.set_state(payload["generator"].cpu())
     with open(os.path.join(path, "metadata.json")) as f:
@@ -116,31 +139,45 @@ def restore_checkpoint(
 def diffusers_lora_export_name(name: str) -> Optional[str]:
     """The LoraLoaderMixin key of a port LoRA factor
     ("unet.<module>.lora_a" -> "unet.<module>.lora.down.weight", lora_b
-    -> up), None for any other tensor."""
+    -> up; "text.<module>.lora_a" ->
+    "text_encoder.<module>.lora_linear_layer.down.weight", "text2." ->
+    "text_encoder_2."), None for any other tensor."""
     m = _LORA_RE.fullmatch(name)
-    if m is None:
-        return None
-    return f"unet.{m.group(1)}.lora.{'down' if m.group(2) == 'a' else 'up'}.weight"
+    if m is not None:
+        return f"unet.{m.group(1)}.lora.{'down' if m.group(2) == 'a' else 'up'}.weight"
+    m = _TEXT_LORA_RE.fullmatch(name)
+    if m is not None:
+        dd = "down" if m.group(3) == "a" else "up"
+        return f"{_TEXT_ENCODERS[m.group(1)]}.{m.group(2)}.lora_linear_layer.{dd}.weight"
+    return None
 
 
-def save_safetensors(path: str, tensors: Mapping[str, np.ndarray]) -> None:
-    """fp32 tensors in the safetensors format: in key order, contiguous,
-    the header padded with spaces to a multiple of 8 bytes."""
-    header, blobs, offset = {}, [], 0
+def _f32(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().float().cpu().numpy()
+    return np.ascontiguousarray(value, dtype="<f4")
+
+
+def save_safetensors(path: str, tensors: Mapping[str, Any]) -> None:
+    """fp32 tensors (numpy arrays or torch tensors of any float dtype) in
+    the safetensors format: in key order, contiguous, the header padded
+    with spaces to a multiple of 8 bytes. Written one tensor at a time,
+    so the host holds one tensor's copy at once (a whole UNet under
+    --full_finetuning)."""
+    header, offset = {}, 0
     for name in sorted(tensors):
-        arr = np.ascontiguousarray(tensors[name], dtype="<f4")
-        data = arr.tobytes()
-        header[name] = {"dtype": "F32", "shape": list(arr.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        blobs.append(data)
-        offset += len(data)
+        shape = [int(d) for d in tensors[name].shape]
+        size = 4 * int(np.prod(shape, dtype=np.int64))
+        header[name] = {"dtype": "F32", "shape": shape,
+                        "data_offsets": [offset, offset + size]}
+        offset += size
     text = json.dumps(header, separators=(",", ":")).encode()
     text += b" " * (-len(text) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(text)))
         f.write(text)
-        for data in blobs:
-            f.write(data)
+        for name in sorted(tensors):
+            f.write(_f32(tensors[name]).tobytes())
 
 
 _SAFETENSORS_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8",
@@ -175,14 +212,16 @@ def load_safetensors(path: str) -> Dict[str, np.ndarray]:
 
 
 def export_lora_safetensors(path: str, trainable: Mapping[str, torch.Tensor]) -> None:
-    """`pytorch_lora_weights.safetensors` of the trainable tensors: the
-    UNet LoRA factors under diffusers' names, transposed to torch's
-    orientation (the port keeps JAX's lora_a (in, rank) / lora_b
-    (rank, out)), in fp32; any other trainable tensor (`--tune_vae`,
-    `--tune_text_encoder`) under its port name and layout, in fp32."""
+    """`pytorch_lora_weights.safetensors` of the trainable tensors (or of
+    their fp32 masters, as JAX's trainable leaves are, where the caller
+    passes those): the UNet's and the text towers' LoRA factors under
+    diffusers' names (`diffusers_lora_export_name`), transposed to torch's
+    orientation (the port keeps JAX's lora_a (in, rank) / lora_b (rank,
+    out)), in fp32; any other trainable tensor (`--tune_vae`,
+    `--tune_text_encoder`, `--full_finetuning`'s UNet) under its port name
+    and layout, in fp32, as JAX's fallback writes its tree paths."""
     flat = {}
     for name, t in trainable.items():
-        arr = t.detach().float().cpu().numpy()
         export = diffusers_lora_export_name(name)
-        flat[export or name] = arr.T if export else arr
+        flat[export or name] = t.detach().T if export else t.detach()
     save_safetensors(path, flat)

@@ -4,9 +4,13 @@ GAN and attribute concentration.
 Port of comat_tpu/training/train_step.py (`TrainConfig`, `DiscState`,
 `partition_params`, `partition_disc_params`, `make_optimizer`,
 `make_d_optimizer`, `init_disc_state`, `sample_trained_idx`,
-`make_loss_fn`, `make_train_step`, `make_presample`) without 8-bit Adam
-or the int8 pass 1: each of those raises `NotImplementedError` naming its
-ROADMAP item. `gradient_accumulation_steps` N > 1 accumulates the
+`make_loss_fn`, `make_train_step`, `make_presample`) without the int8
+pass 1, which raises `NotImplementedError` naming its ROADMAP item. The
+trainable surface is JAX's: the LoRA factors (the UNet's, and the text
+towers' at `text_lora_rank > 0`), the whole UNet under
+`full_finetuning`, the VAE and both text towers with `tune_vae` /
+`tune_text_encoder`; `use_8bit_adam` keeps AdamW's moments as int8
+blocks (`training.optim8bit`). `gradient_accumulation_steps` N > 1 accumulates the
 generator's gradients in its optimizer and applies their mean every N-th
 step, as JAX's `optax.MultiSteps` does (`ClippedAdamW`); D updates every
 step. One step: encode the prompts, pass 1 (50
@@ -51,6 +55,7 @@ from comat_tpu_torch.losses.caption_reward import blip_caption_reward, crop_jitt
 from comat_tpu_torch.losses.gan import Discriminator, gan_d_loss, gan_g_loss
 from comat_tpu_torch.models.lora import is_lora_path
 from comat_tpu_torch.models.pipeline import DiffusionPipeline
+from comat_tpu_torch.training.optim8bit import AdamW8bit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +102,6 @@ class TrainConfig:
 # Flags whose paths are not ported yet, and the ROADMAP item of each, by
 # its title in Queue 1.
 _NOT_PORTED = (
-    ("use_8bit_adam", "ROADMAP Queue 1: opt-in extras (8-bit Adam)"),
     ("pass1_int8", "ROADMAP Queue 1: opt-in extras (W8A8 pass 1)"),
 )
 
@@ -112,23 +116,29 @@ def partition_params(
     pipeline: DiffusionPipeline,
     tune_vae: bool = False,
     tune_text_encoder: bool = False,
+    full_finetuning: bool = False,
 ) -> Dict[str, torch.nn.Parameter]:
     """Mark the trainable tensors of the pipeline and return them by name
-    ("unet.<name>", "vae.<name>", "text.<name>"): the UNet's LoRA factors,
-    and the whole VAE (encoder and decoder, as JAX marks its `vae`
-    subtree) or the text encoder with the flags of the same names. Every
-    other parameter is set frozen (`requires_grad` off). The encoder gets
-    no gradient (the step only decodes), so AdamW's weight decay alone
-    moves it, as in JAX.
+    ("unet.<name>", "vae.<name>", "text.<name>", "text2.<name>"): every
+    LoRA factor (the UNet's, and the text towers' where they carry LoRA),
+    the whole UNet (base and LoRA) with `full_finetuning`, the whole VAE
+    (encoder and decoder, as JAX marks its `vae` subtree) with `tune_vae`
+    and both text towers with `tune_text_encoder` (JAX's ("text",
+    "text2")). Every other parameter is set frozen (`requires_grad` off).
+    The encoder gets no gradient (the step only decodes), so AdamW's
+    weight decay alone moves it, as in JAX.
 
     A tensor of a bf16 tower stays bf16 here, the module's working copy;
     the optimizer keeps its fp32 master (`ClippedAdamW`)."""
+    towers = [("unet", pipeline.unet), ("text", pipeline.text), ("vae", pipeline.vae)]
+    if pipeline.text2 is not None:
+        towers.append(("text2", pipeline.text2))
     marks = [
         (f"{tower}.{name}", p, is_lora_path(name)
+         or (full_finetuning and tower == "unet")
          or (tune_vae and tower == "vae")
-         or (tune_text_encoder and tower == "text"))
-        for tower, module in (("unet", pipeline.unet), ("text", pipeline.text),
-                              ("vae", pipeline.vae))
+         or (tune_text_encoder and tower in ("text", "text2")))
+        for tower, module in towers
         for name, p in module.named_parameters()
     ]
     for _, p, train in marks:
@@ -136,10 +146,19 @@ def partition_params(
     return {name: p for name, p, train in marks if train}
 
 
+def _is_text(name: str) -> bool:
+    """A text tower's tensor ("text.<name>", "text2.<name>"): JAX's "text"
+    label of the --textenc_lora_lr group."""
+    return name.split(".", 1)[0] in ("text", "text2")
+
+
 class ClippedAdamW:
     """optax.chain(clip_by_global_norm(max_norm), adamw(...)) over named
-    tensors, with a second AdamW group for the text encoder's tensors when
-    `textenc_lr` is set (the clip stays joint, as in JAX).
+    tensors, with a second AdamW group for the text towers' tensors when
+    `textenc_lr` is set (the clip stays joint, as in JAX). With
+    `cfg.use_8bit_adam` AdamW is JAX's `adamw_8bit`
+    (`training.optim8bit.AdamW8bit`: int8 blockwise moments) in both
+    groups.
 
     The clip and AdamW act on fp32 master weights, `masters` by name. An
     fp32 tensor (the LoRA factors, the VAE's fp32 `conv_out`) is its own
@@ -180,7 +199,8 @@ class ClippedAdamW:
     gradient gets a zero one, so that weight decay reaches it as in optax.
     AdamW itself is `torch.optim.AdamW`: the same update as optax.adamw
     (bias-corrected moments, eps outside the square root, decoupled weight
-    decay scaled by the learning rate)."""
+    decay scaled by the learning rate); the 8-bit one follows
+    `optim8bit`."""
 
     def __init__(self, params: Dict[str, torch.Tensor], cfg: TrainConfig,
                  initial_masters: Optional[Mapping[str, torch.Tensor]] = None,
@@ -206,8 +226,8 @@ class ClippedAdamW:
                 master = src.detach().to(p.device, torch.float32, copy=True)
                 p.copy_(master)
                 self.masters[name] = master.requires_grad_()
-        main = [m for n, m in self.masters.items() if not n.startswith("text.")]
-        text = [m for n, m in self.masters.items() if n.startswith("text.")]
+        main = [m for n, m in self.masters.items() if not _is_text(n)]
+        text = [m for n, m in self.masters.items() if _is_text(n)]
         groups = [{"params": main, "lr": cfg.learning_rate}]
         if text:
             groups.append({"params": text, "lr": cfg.textenc_lr
@@ -216,7 +236,8 @@ class ClippedAdamW:
         # each group's rate as a fraction of the schedule's
         self._ratios = [g["lr"] / cfg.learning_rate if cfg.learning_rate else 0.0
                         for g in groups]
-        self.adam = torch.optim.AdamW(
+        adamw = AdamW8bit if cfg.use_8bit_adam else torch.optim.AdamW
+        self.adam = adamw(
             groups, lr=cfg.learning_rate,
             betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
             weight_decay=cfg.adam_weight_decay,
@@ -277,8 +298,9 @@ class ClippedAdamW:
 
     def state_dict(self) -> Dict[str, object]:
         """The update count, the fp32 masters of bf16 tensors and AdamW's
-        state (moments and steps), for a checkpoint; under accumulation
-        also the micro-step counter and the running mean."""
+        state (moments and steps; the 8-bit codes and scales with
+        `use_8bit_adam`), for a checkpoint; under accumulation also the
+        micro-step counter and the running mean."""
         state = {"count": self.count, "adam": self.adam.state_dict(),
                  "masters": {n: m.detach() for n, m in self.masters.items()
                              if m is not self.params[n]}}
@@ -327,11 +349,11 @@ def make_d_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
     """D's optimizer (defaults: scripts/sd15.sh's --learning_rate_D 2e-5,
     --adam_beta1_D 0, --adam_beta2_D 0.999, --max_grad_norm_D 1): a
     global-norm clip and AdamW at a constant rate, with the generator's
-    eps and weight decay; never accumulated (D updates every step, as in
-    JAX)."""
+    eps and weight decay; never accumulated (D updates every step) and
+    fp32 AdamW under --use_8bit_adam too, as in JAX."""
     return ClippedAdamW(params, dataclasses.replace(
         cfg, learning_rate=lr, adam_b1=b1, adam_b2=b2, max_grad_norm=max_grad_norm,
-        textenc_lr=None, gradient_accumulation_steps=1))
+        textenc_lr=None, gradient_accumulation_steps=1, use_8bit_adam=False))
 
 
 class DiscState(NamedTuple):
@@ -388,15 +410,16 @@ def init_train_state(
     tune_text_encoder: bool = False,
     initial_masters: Optional[Mapping[str, torch.Tensor]] = None,
     lr_schedule: Optional[Callable[[int], float]] = None,
+    full_finetuning: bool = False,
 ) -> TrainState:
-    """`initial_masters`: fp32 tensors by trainable name ("vae.<name>",
-    "text.<name>") that a bf16 tower's weights were rounded from, for a
-    pipeline built from a JAX tree the tensors of
-    `weights.from_jax_params` under their tower's prefix; without them the
-    masters are the stored weights upcast (`ClippedAdamW`). The pipeline
-    then runs its bf16 trained tensors through their masters
-    (`DiffusionPipeline.set_masters`)."""
-    trainable = partition_params(pipeline, tune_vae, tune_text_encoder)
+    """`initial_masters`: fp32 tensors by trainable name ("unet.<name>",
+    "vae.<name>", "text.<name>", "text2.<name>") that a bf16 tower's
+    weights were rounded from, for a pipeline built from a JAX tree the
+    tensors of `weights.from_jax_params` under their tower's prefix;
+    without them the masters are the stored weights upcast
+    (`ClippedAdamW`). The pipeline then runs its bf16 trained tensors
+    through their masters (`DiffusionPipeline.set_masters`)."""
+    trainable = partition_params(pipeline, tune_vae, tune_text_encoder, full_finetuning)
     opt = make_optimizer(cfg, trainable, initial_masters, lr_schedule)
     pipeline.set_masters({n: m for n, m in opt.masters.items() if m is not trainable[n]})
     return TrainState(0, trainable, opt)

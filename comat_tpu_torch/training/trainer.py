@@ -26,7 +26,16 @@ second tokenizer padding with id 0, the added condition). Under an SDXL
 generator `--gan_model_arch gansd_1_5` builds the published recipe's
 cross-architecture D, an SD1.5 UNet of its own (seeded) conditioned on
 CLIP-L's final states; `--gan_model_arch sdxl` an SDXL D sharing the
-generator's base, as with SD1.5.
+generator's base, as with SD1.5. Under --full_finetuning D takes a frozen
+copy of the generator's base instead, so that it stays at the pretrained
+weights while the generator's moves (JAX's `_share_base_unet`).
+
+Trainable surfaces as JAX's trainer sets them: the UNet's LoRA, plus
+--train_text_encoder_lora (LoRA of --lora_rank on both text towers),
+--tune_text_encoder (both text towers whole), --tune_vae and
+--full_finetuning (the whole UNet); either text flag turns the text
+towers' gradient on and --textenc_lora_lr's rate group. --use_8bit_adam
+keeps the generator's AdamW moments as int8 blocks (`training.optim8bit`).
 
 Weights: the towers load from the diffusers snapshot --pretrain_model
 names (a folder, or a repo id resolved through --cache_dir's hub cache),
@@ -38,7 +47,8 @@ its tokenizer from --blip_tokenizer_vocab (`models/hf_import.py`). The
 file sets are chosen before any weights are made, so a folder without
 safetensors raises at once. With --tune_vae / --tune_text_encoder the
 trained bf16 towers' fp32 masters are the snapshot's values, as JAX's
-fp32 leaves are. A cross-architecture D keeps its seeded SD1.5 tower, as
+fp32 leaves are (and the UNet's under --full_finetuning). A
+cross-architecture D keeps its seeded SD1.5 tower, as
 in JAX. Real runs refuse the smoke fallbacks (seeded tower or caption
 weights, tensors a snapshot lacks, hash tokenizers, zero GAN latents)
 unless --allow_smoke (`smoke_fallbacks` lists those taken); a snapshot
@@ -154,9 +164,11 @@ class Trainer:
         tiny = bool(args.tiny_models)
         self.logger.info("building pipeline %s on %s", args.pretrain_model_name,
                          self.device)
-        self.pcfg = make_pipeline_config(args.pretrain_model_name,
-                                         lora_rank=args.lora_rank,
-                                         resolution=args.resolution, tiny=tiny)
+        self.pcfg = make_pipeline_config(
+            args.pretrain_model_name, lora_rank=args.lora_rank,
+            resolution=args.resolution, tiny=tiny,
+            text_lora_rank=args.lora_rank if args.train_text_encoder_lora else 0)
+        train_text = args.tune_text_encoder or args.train_text_encoder_lora
         self.blip_cfg = BLIPConfig.tiny() if tiny else BLIPConfig.large()
         self.tcfg = TrainConfig(
             total_step=args.total_step, K=args.K, guidance_scale=args.cfg_scale,
@@ -165,16 +177,17 @@ class Trainer:
             adam_b1=args.adam_beta1, adam_b2=args.adam_beta2,
             adam_eps=args.adam_epsilon, adam_weight_decay=args.adam_weight_decay,
             max_grad_norm=args.max_grad_norm, norm_grad=args.norm_grad,
-            train_text_encoder=args.tune_text_encoder,
+            train_text_encoder=train_text,
             gan_loss=args.gan_loss, gan_loss_weight=args.gan_loss_weight,
             attrcon="attrcon" in args.pretrain_model_name,
             attrcon_train_steps=args.attrcon_train_steps,
             mask_token_loss_weight=args.mask_token_loss_weight,
             mask_pixel_loss_weight=args.mask_pixel_loss_weight,
             gradient_accumulation_steps=args.gradient_accumulation_steps,
+            use_8bit_adam=args.use_8bit_adam,
             gradient_checkpointing=args.gradient_checkpointing,
             remat_min_res=args.remat_min_res,
-            textenc_lr=args.textenc_lora_lr if args.tune_text_encoder else None,
+            textenc_lr=args.textenc_lora_lr if train_text else None,
         )
 
         # cheap checks first, before any weights are made
@@ -237,7 +250,12 @@ class Trainer:
             self._gate_missing("caption model", self.caption_dir, report.missing)
         self.state = init_train_state(self.pipeline, self.tcfg, tune_vae=args.tune_vae,
                                       tune_text_encoder=args.tune_text_encoder,
-                                      initial_masters=masters, lr_schedule=self.lr_fn)
+                                      initial_masters=masters, lr_schedule=self.lr_fn,
+                                      full_finetuning=args.full_finetuning)
+        # the optimizer holds its own masters: the load's fp32 copies go
+        del masters
+        for report in self.load_reports.values():
+            report.masters = {}
 
         self.disc = self.d_state = self.latent_store = None
         if args.gan_loss:
@@ -262,9 +280,11 @@ class Trainer:
                           if tiny else UNetConfig.sd15())
                 self.disc = Discriminator(d_unet, gan_cfg, self.device, seed=seed + 2)
             else:
-                # D's frozen base is the generator's own UNet (gan_sd_model.py:8-13)
+                # D's frozen base is the generator's own UNet (gan_sd_model.py:8-13),
+                # a frozen copy of it when the generator's base trains
                 self.disc = Discriminator(self.pcfg.unet, gan_cfg, self.device,
-                                          base_unet=self.pipeline.unet, seed=seed + 2)
+                                          base_unet=self.pipeline.unet, seed=seed + 2,
+                                          copy_base=args.full_finetuning)
             self.d_state = init_disc_state(
                 self.disc, self.tcfg, lr=args.learning_rate_D, b1=args.adam_beta1_D,
                 b2=args.adam_beta2_D, max_grad_norm=args.max_grad_norm_D)
@@ -334,19 +354,7 @@ class Trainer:
         self._step_times = []
         # (step, seconds) of each validation, its images fetched included
         self.validation_times = []
-        # SIGTERM/SIGINT: checkpoint, then exit (the reference has none)
         self._stop_requested = False
-
-        def _graceful(signum, frame):
-            self.logger.warning("signal %d: checkpointing at step %d then exiting",
-                                signum, self.global_step)
-            self._stop_requested = True
-
-        try:
-            signal.signal(signal.SIGTERM, _graceful)
-            signal.signal(signal.SIGINT, _graceful)
-        except ValueError:
-            pass    # not the main thread
 
     def _resolve_pretrained(self, tiny: bool) -> Optional[str]:
         """--pretrain_model resolved (through --cache_dir for a repo id) to
@@ -416,20 +424,24 @@ class Trainer:
     def _load_pretrained(self, args) -> Dict[str, torch.Tensor]:
         """The snapshot into the pipeline's towers, then --sdxl_unet_path's
         UNet over it (reference training_utils/pipeline.py:28). Returns
-        the fp32 masters of the towers --tune_vae / --tune_text_encoder
-        train. The swapped-in UNet's missing and unused names are logged,
-        as JAX logs its unmapped names; the towers' missing tensors, the
-        swap's aside, go through the smoke gate."""
-        keep = [t for t, on in (("vae", args.tune_vae), ("text", args.tune_text_encoder))
-                if on]
+        the fp32 masters of the towers --tune_vae, --tune_text_encoder and
+        --full_finetuning train. The swapped-in UNet's missing and unused
+        names are logged, as JAX logs its unmapped names; the towers'
+        missing tensors, the swap's aside, go through the smoke gate."""
+        keep = [t for t, on in (("vae", args.tune_vae), ("text", args.tune_text_encoder),
+                                ("text2", args.tune_text_encoder),
+                                ("unet", args.full_finetuning)) if on]
         reports = {}
         if self.snapshot:
             reports = load_sd_state(self.snapshot, self.pipeline, keep_masters=keep)
             for tower, report in reports.items():
                 self._record_load(tower, self.snapshot, report)
+        masters = {n: m for r in reports.values() for n, m in r.masters.items()}
         if args.sdxl_unet_path:
             swap = self._record_load("sdxl_unet_path", args.sdxl_unet_path,
-                                     load_unet_state(args.sdxl_unet_path, self.pipeline.unet))
+                                     load_unet_state(args.sdxl_unet_path, self.pipeline.unet,
+                                                     keep_masters="unet" in keep))
+            masters.update(swap.masters)
             if swap.missing or swap.unused:
                 self.logger.warning(
                     "sdxl_unet_path: %d unmapped params (first: %s), %d unused tensors "
@@ -440,7 +452,7 @@ class Trainer:
                 reports["unet"].missing = [n for n in reports["unet"].missing if n in kept]
         missing = [f"{tower}.{n}" for tower, r in reports.items() for n in r.missing]
         self._gate_missing("snapshot", self.snapshot, missing)
-        return {n: m for r in reports.values() for n, m in r.masters.items()}
+        return masters
 
     def _build_gsam_segmenter(self, args, seed: int):
         """The reference's default segmenter (--seg_model gsam): FastSAM-x
@@ -511,7 +523,60 @@ class Trainer:
             batch["gt_latents"] = np.zeros((len(prompts), s, s, 4), np.float32)
         return batch
 
+    def _graceful(self, signum, frame) -> None:
+        self.logger.warning("signal %d: checkpointing at step %d then exiting",
+                            signum, self.global_step)
+        self._stop_requested = True
+
     def train(self) -> None:
+        """The loop. SIGTERM/SIGINT during it: checkpoint, then exit (the
+        reference has none); the handlers it replaces come back when it
+        returns, so that they hold no trainer afterwards."""
+        previous = {}
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                previous[sig] = signal.signal(sig, self._graceful)
+        except ValueError:
+            pass    # not the main thread
+        try:
+            self._train()
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+
+    def train_one(self, prompts) -> Dict[str, float]:
+        """One step of the loop on `prompts` (a split step where the
+        segmenter needs the image): the batch, its draws, the step, the
+        launch counts and the metrics, logged one step late. Returns the
+        step's metrics."""
+        args = self.args
+        if args.batch_repeat > 1:
+            prompts = list(prompts) * args.batch_repeat
+        clock = PhaseClock(self.device, probe=self.probe)
+        batch = self._batch(prompts)
+        self.timer.tick()
+        draws = None
+        if self.presample is not None:
+            # the split step (JAX trainer.py:785-798): the step's
+            # draws, taken from the generator as the step takes them
+            draws = sample_draws(self.tcfg, len(prompts), self.pcfg.latent_size,
+                                 self.generator, self.device)
+            image, eps_table, traj = self.presample(batch, draws, clock)
+            batch["seg_masks"] = self.seg_holder.device_masks(image, mark=clock.mark)
+            batch["eps_table"], batch["latents_traj"] = eps_table, traj
+        # the step returns host floats, so it has synchronised
+        self.state, m = self.train_step(self.state, batch, draws=draws,
+                                        generator=self.generator, clock=clock)
+        dt = self.timer.tick()
+        self.global_step += 1
+        if self.probe is not None:
+            self._add_counts(clock)
+        self._profile_step()
+        self._flush_pending_metrics()
+        self._pending_metrics = (self.global_step, m, len(prompts), dt)
+        return m
+
+    def _train(self) -> None:
         args = self.args
         steps_per_epoch = max(len(self.dataset), 1)
         num_epochs = max(1, -(-args.max_train_steps // steps_per_epoch))
@@ -535,30 +600,7 @@ class Trainer:
                     continue
                 if self.global_step >= args.max_train_steps:
                     break
-                if args.batch_repeat > 1:
-                    prompts = list(prompts) * args.batch_repeat
-                clock = PhaseClock(self.device, probe=self.probe)
-                batch = self._batch(prompts)
-                self.timer.tick()
-                draws = None
-                if self.presample is not None:
-                    # the split step (JAX trainer.py:785-798): the step's
-                    # draws, taken from the generator as the step takes them
-                    draws = sample_draws(self.tcfg, len(prompts), self.pcfg.latent_size,
-                                         self.generator, self.device)
-                    image, eps_table, traj = self.presample(batch, draws, clock)
-                    batch["seg_masks"] = self.seg_holder.device_masks(image, mark=clock.mark)
-                    batch["eps_table"], batch["latents_traj"] = eps_table, traj
-                # the step returns host floats, so it has synchronised
-                self.state, m = self.train_step(self.state, batch, draws=draws,
-                                                generator=self.generator, clock=clock)
-                dt = self.timer.tick()
-                self.global_step += 1
-                if self.probe is not None:
-                    self._add_counts(clock)
-                self._profile_step()
-                self._flush_pending_metrics()
-                self._pending_metrics = (self.global_step, m, len(prompts), dt)
+                self.train_one(prompts)
                 if self._stop_requested:
                     self._flush_pending_metrics()
                     self.save_and_evaluate()
@@ -639,7 +681,7 @@ class Trainer:
             # LoraLoaderMixin (training_script.py:397-401)
             ckpt_lib.export_lora_safetensors(
                 os.path.join(path, "pytorch_lora_weights.safetensors"),
-                self.state.trainable)
+                self.state.optimizer.masters)
             self.logger.info("saved checkpoint %s", path)
         if ((args.validation_prompts or args.validation_prompts_file)
                 and args.num_validation_images > 0):

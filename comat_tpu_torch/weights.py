@@ -23,7 +23,11 @@ import torch
 from torch import nn
 
 # the snapshot name maps live with the loaders; imported here for callers
-from comat_tpu_torch.models.hf_import import blip_from_hf, unet_from_diffusers  # noqa: F401
+from comat_tpu_torch.models.hf_import import (  # noqa: F401
+    blip_from_hf,
+    clip_lora_names,
+    unet_from_diffusers,
+)
 
 
 def _dense(x):
@@ -138,7 +142,10 @@ def _clip_rule(path: Tuple[str, ...]) -> Optional[Rule]:
         if sub in ("norm1", "norm2"):
             name, fn = _leaf("norm", leaf)
             return f"{base}.layer_{sub}.{name}", fn
-        if sub in ("q_proj", "k_proj", "v_proj", "out_proj") and path[2] == "base":
+        if sub in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            # the base's leaves under transformers' names, the LoRA factors
+            # (--train_text_encoder_lora) beside them: `from_jax_params`
+            # moves the base under `.base` where the tree has factors
             name, fn = _leaf("dense", leaf)
             return f"{base}.self_attn.{sub}.{name}", fn
         if sub in ("fc1", "fc2"):
@@ -506,7 +513,8 @@ def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
     under the same keys (CPU fp32 tensors; the modules cast them to their
     own dtypes on load). "text2" is SDXL's second tower, its
     `text_projection` (hidden, proj) transposed to transformers' (proj,
-    hidden). "disc" is a discriminator's tree
+    hidden); a text tree with LoRA factors (`text_lora_rank`) gives the
+    names of a tower that carries them (`hf_import.clip_lora_names`). "disc" is a discriminator's tree
     (`losses.gan.Discriminator`); "vae" the whole AutoencoderKL, encoder
     and decoder; "gdino" a GroundingDetector's and "fastsam" a YoloV8Seg's
     variables ({"params", "batch_stats"}), whose state dicts carry the
@@ -518,6 +526,9 @@ def from_jax_params(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
              "vae": _vae_rule, "blip": _blip_rule, "blip_vqa": _blip_vqa_rule,
              "gdino": _gdino_rule}
     out = {k: _convert(tree[k], rule) for k, rule in rules.items() if k in tree}
+    for k in ("text", "text2"):
+        if k in out and any(n.endswith(".lora_a") for n in out[k]):
+            out[k] = clip_lora_names(out[k])
     if "fastsam" in tree:
         fs = tree["fastsam"]
         out["fastsam"] = _convert(fs["params"], _fastsam_rule)

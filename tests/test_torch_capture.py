@@ -192,7 +192,7 @@ def test_capture_only_vjp_matches_jax(case):
 
     layout = []
     outs = tsampler._CaptureOnly.apply(capture_primal, T, lambda name: None, layout,
-                                       x, ctx, *trainable.values())
+                                       1, x, ctx, *trainable.values())
     flat_want = [m for k, _ in layout for m in case["maps"][k]]
     flat_cot = [torch.tensor(c) for k, _ in layout for c in case["cot"][k]]
     assert sorted(k for k, _ in layout) == sorted(case["maps"])

@@ -75,13 +75,47 @@ def test_parser_matches_jax_on_sd15_flags(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--use_8bit_adam"], ["--full_finetuning"], ["--train_text_encoder_lora"],
-    ["--mesh_model_axis", "2"],
-    ["--pretrain_model_name", "sdxl", "--tune_text_encoder"],
-    ["--pass1_int8"], ["--prediction_type", "v_prediction"]])
+    ["--mesh_model_axis", "2"], ["--pass1_int8"], ["--prediction_type", "v_prediction"]])
 def test_unported_flags_raise_naming_their_item(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "):
         targs.parse_args(["--training_prompts", "p.txt", *flags])
+
+
+SURFACE_RUN = ["--tiny_models", "--device", "cpu", "--resolution", "64", "--lora_rank", "4",
+               "--allow_smoke", "--report_to", "none"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--use_8bit_adam"], ["--full_finetuning", "--gan_loss"], ["--train_text_encoder_lora"],
+    ["--pretrain_model_name", "sdxl", "--tune_text_encoder"]])
+def test_ported_surface_flags_reach_the_train_config(tmp_path, flags):
+    """The flags that raised until the trainable surfaces were ported
+    build a trainer whose config, optimizer and trainable tensors are
+    JAX's: 8-bit AdamW, the whole UNet (D on a frozen copy of its base),
+    LoRA on the text towers with their gradient on, both SDXL towers."""
+    from comat_tpu_torch.training.optim8bit import AdamW8bit
+
+    trainer = Trainer(_args(tmp_path, *SURFACE_RUN, *flags))
+    tcfg, trainable = trainer.tcfg, trainer.state.trainable
+    towers = {n.split(".", 1)[0] for n in trainable}
+    if "--use_8bit_adam" in flags:
+        assert tcfg.use_8bit_adam and isinstance(trainer.state.optimizer.adam, AdamW8bit)
+        assert towers == {"unet"}
+    if "--full_finetuning" in flags:
+        unet = trainer.pipeline.unet
+        assert all(f"unet.{n}" in trainable for n, _ in unet.named_parameters())
+        g_ids = {id(p) for p in unet.parameters()}
+        base = [p for n, p in trainer.disc.unet.named_parameters() if "lora_" not in n]
+        assert base and not any(id(p) in g_ids or p.requires_grad for p in base)
+    if "--train_text_encoder_lora" in flags:
+        assert trainer.pcfg.text_lora_rank == 4 and tcfg.train_text_encoder
+        assert tcfg.textenc_lr == trainer.args.textenc_lora_lr
+        text = [n for n in trainable if n.startswith("text.")]
+        assert text and all("lora_" in n for n in text)
+    if "--tune_text_encoder" in flags:
+        assert trainer.pcfg.is_sdxl and tcfg.train_text_encoder
+        assert towers == {"unet", "text", "text2"}
+        assert "text2.text_model.final_layer_norm.weight" in trainable
 
 
 SCHEDULES = [("constant", 0), ("constant", 10), ("cosine", 5), ("cosine", 0),

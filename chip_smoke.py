@@ -5,11 +5,12 @@
 
 Phases; any failure ends the run with a nonzero exit and no result line:
 1. build: print the card's name and power limit, build every CUDA kernel
-   (one nvcc per source, all four at once), print what ptxas reports for
+   (one nvcc per source, all six at once), print what ptxas reports for
    each kernel (registers, spills), and count the tensor-core
-   instructions (HGMMA, HMMA) of each kernel in the built SASS
+   instructions (HGMMA, HMMA, IMMA) of each kernel in the built SASS
    (`cuobjdump -sass`); fail if the bf16 code of the flash forward (A),
-   of its dq or dk/dv backward, of the 3x3 conv (B) or of its dw has none;
+   of its dq or dk/dv backward, of the 3x3 conv (B) or of its dw, or the
+   int8 conv, has none;
 2. kernels: each kernel against its plain PyTorch version at the shapes
    the two main paths give it, in fp32 (TF32 off) and bf16, with its time,
    the plain version's, one PyTorch library call's, and its bound: the
@@ -171,6 +172,32 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    (but the zero tensors no gradient reaches: CLIP-L's last layer, unread
    by SDXL), seconds per step, s_optimizer, peak memory, launches by role
    phase 12's a step.
+18. the int8 kernels of --pass1_int8 (csrc/quant_s8.cu, csrc/conv_s8.cu;
+   no Pallas counterpart, XLA in JAX): at every distinct quantized layer
+   of SD1.5 at 512^2 (CFG batch 8) and SDXL (CFG batch 12), on the layer's
+   real input from one guided call of the seeded bf16 pipelines and its
+   weight, the quantize's codes and scales (activations and weights), the
+   int8 conv's int32 sums and bf16 epilogue and the dequantize after
+   `torch._int_mm`, each equal to its plain version bit for bit; times
+   against the plain versions, cuDNN's bf16 conv or `F.linear`, and
+   `torch._int_mm` with a plain dequantize (and the conv kernel as a 1x1
+   conv over a linear's rows);
+19. W8A8 pass 1: 50 guided calls through the fused twin, bf16 and int8
+   from the same draws in turns, SD1.5 at batch 4 and SDXL at batch 6:
+   seconds, the weight set's bytes and quantize seconds, cos of the final
+   latents > 0.99 (JAX's gate), int8 launches per layer; then the trainer
+   on sd15.sh's flags with --pass1_int8 for 3 steps (`train_one`): s_step
+   and its split beside phase 9's, peak memory, launches by role (every
+   int8 launch in pass 1's), step 1's loss beside phase 9's bf16 step 1
+   from the same draws;
+20. v-prediction: phase 4 with --prediction_type v_prediction (the same
+   gates), then again with --pass1_int8: the activation codes that differ
+   between card and CPU are counted and the loss and leaves reported; up
+   to the first quantize call whose codes differ the two sides' inputs
+   agree to fp32 roundoff, and there every differing code sits within
+   that roundoff of a .5 boundary of the code grid (gated);
+21. stability: `tools/stability_run.py` for 10 steps (bench's default
+   SD1.5 step at batch 4): each step's seconds, their spread, all finite.
 Each phase prints the GiB allocated and reserved at its start. Then one
 JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
@@ -179,8 +206,8 @@ same step with the VAE trained, phase 4's fp32 card run of the train step
 with the VAE trained (dw), the full recipe's step, the latent store's
 encoding, the trainer CLI's run, SDXL's latent store and trainer run,
 the generation and trainer run from the SD1.5 snapshot, the latent tool's
-store, the accumulated trainer's runs, the evaluator and phases 16(b) and
-17's trainers. Weights are random (the real ones are not in the
+store, the accumulated trainer's runs, the evaluator, phases 16(b) and
+17's trainers, phase 19's pass 1 (int8) and trainer and phase 21's steps. Weights are random (the real ones are not in the
 repository); depth is not cut.
 """
 
@@ -202,7 +229,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 # |kernel - plain| <= ATOL + RTOL * |plain|, elementwise
 TOLS = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 2.0 ** -7)}
@@ -359,6 +386,11 @@ LOSS_TOL = 1e-3
 # ZERO_LEAF_TOL times the largest gradient, instead of a relative one.
 ZERO_LEAF_REL = 1e-6
 ZERO_LEAF_TOL = 1e-5
+# phase 20 with --pass1_int8: the activation quantize calls whose inputs
+# are kept on both sides, and the relative gap (max |card - CPU| over max
+# |CPU|) within which the inputs agree up to the first differing code
+WITNESS_CALLS = 64
+WITNESS_REL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -375,15 +407,15 @@ def gpu_name_and_power() -> str:
 
 # kernel functions whose SASS must hold tensor-core instructions: the
 # bf16 code of the flash forward (A), of its dq and dk/dv backward, of the
-# 3x3 conv (B) and of its dw
+# 3x3 conv (B) and of its dw, and the int8 conv (IMMA)
 TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
                        "flash_bwd_dkv_bf16_kernel", "conv3x3_bf16_kernel",
-                       "conv3x3_dw_bf16_kernel")
+                       "conv3x3_dw_bf16_kernel", "conv_s8_kernel")
 
 
 def sass_tensor_core_counts(lib_path: str) -> dict:
-    """{kernel function: (HGMMA count, HMMA count)} in a built library's
-    SASS, read with cuobjdump from the toolkit that built it."""
+    """{kernel function: (HGMMA count, HMMA or IMMA count)} in a built
+    library's SASS, read with cuobjdump from the toolkit that built it."""
     from comat_tpu_torch.ops._build import _nvcc
 
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
@@ -396,7 +428,7 @@ def sass_tensor_core_counts(lib_path: str) -> dict:
             counts[name] = [0, 0]
         elif name is not None and "HGMMA" in line:
             counts[name][0] += 1
-        elif name is not None and "HMMA" in line:
+        elif name is not None and ("HMMA" in line or "IMMA" in line):
             counts[name][1] += 1
     return {n: tuple(c) for n, c in counts.items()}
 
@@ -413,7 +445,7 @@ def phase_sass(paths) -> dict:
                 others = [others[0] + 1, others[1] + hgmma, others[2] + hmma]
                 continue
             found.setdefault(kernel, []).append(hgmma + hmma)
-            log(f"  {source}: {fn}: {hgmma} HGMMA, {hmma} HMMA")
+            log(f"  {source}: {fn}: {hgmma} HGMMA, {hmma} HMMA/IMMA")
         if others[0]:
             log(f"  {source}: {others[0]} other kernels: {others[1]} HGMMA, "
                 f"{others[2]} HMMA")
@@ -425,7 +457,8 @@ def phase_sass(paths) -> dict:
 
 
 def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
-    """Mean ms per call on the card (CUDA events), after one warm-up."""
+    """Mean ms per call on the card (CUDA events), after one warm-up: over
+    as many calls as fill `budget_ms` (1-50)."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -433,7 +466,7 @@ def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
     fn()
     end.record()
     torch.cuda.synchronize()
-    reps = max(3, min(50, int(budget_ms / max(start.elapsed_time(end), 1e-3))))
+    reps = max(1, min(50, int(budget_ms / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -473,9 +506,11 @@ def check_close(name, got, want, dtype) -> float:
 
 
 def _entry(name, source, replaces, kernel, key, shape, dtype, err, times, flops,
-           nbytes, library, **extra):
+           nbytes, library, ops_dtype=None, **extra):
+    """A kernels-line entry; the bound counts `flops` at the peak of
+    `ops_dtype` (default `dtype`)."""
     ms, plain, lib = times
-    bms, by = bound_ms(flops, nbytes, dtype)
+    bms, by = bound_ms(flops, nbytes, ops_dtype or dtype)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 shape=list(shape), dtype=dtype, kernel=kernel, key=key,
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -485,9 +520,13 @@ def _entry(name, source, replaces, kernel, key, shape, dtype, err, times, flops,
 def _log_entry(e) -> None:
     lib_err = (f", its err {e['library_max_abs_err']:.2e}"
                if "library_max_abs_err" in e else "")
+    lib = ("no library call" if e["library_ms"] is None
+           else f"{e['library']} {e['library_ms']:.3f}{lib_err}")
+    extra = "".join(f", {k} {e[k]:.3f}" for k in ("int_mm_ms", "conv_s8_1x1_ms",
+                                                   "linear_bf16_ms", "gemm_bound_ms") if k in e)
     log(f"  {e['name']} {e['dtype']} {e['shape']}: err {e['max_abs_err']:.2e}, "
-        f"{e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, {e['library']} "
-        f"{e['library_ms']:.3f}{lib_err}, bound {e['bound_ms']:.3f} by {e['bound_by']})")
+        f"{e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, {lib}, bound {e['bound_ms']:.3f} "
+        f"by {e['bound_by']}{extra})")
 
 
 def _flash_inputs(torch, gen, shape, dt):
@@ -841,10 +880,52 @@ def _d_own(disc):
             if "lora_" in n or n.startswith("head.")}
 
 
-def phase_train_parity(torch, fa, cv, kernels):
+def _first_flip_at_a_boundary(torch, differ, calls, inputs) -> None:
+    """Phase 20's witness that card and CPU part through fp32 roundoff at a
+    code boundary and not through a fault: up to the first activation
+    quantize call whose codes differ, the two sides' inputs agree within
+    WITNESS_REL, and there each differing code's CPU value x / s lies
+    within the two sides' own gap |x / s (card) - x / s (CPU)| of a .5
+    boundary, and that gap is at most 127 * 2 * WITNESS_REL code units."""
+    first = next((i for i, n in enumerate(differ) if n), None)
+    if first is None:
+        log("  int8 witness: no activation code differs between card and CPU")
+        return
+    if first >= len(inputs["cpu"]):
+        raise AssertionError(f"int8 witness: the first differing codes are in quantize call "
+                             f"{first}, past the {WITNESS_CALLS} kept")
+    gaps = []
+    for (xc, _), (xg, _) in zip(inputs["cpu"][:first + 1], inputs["cuda"][:first + 1]):
+        gaps.append(float((xg - xc).abs().max() / xc.abs().max().clamp_min(1e-30)))
+    (xc, sc), (xg, sg) = inputs["cpu"][first], inputs["cuda"][first]
+    groups = sc.numel()
+    r_cpu = xc.double().reshape(groups, -1) / sc.double()[:, None]
+    r_gpu = xg.double().reshape(groups, -1) / sg.double()[:, None]
+    mask = (calls[first][0] != calls[first][1]).reshape(groups, -1)
+    a = r_cpu.abs()
+    off = (a - a.floor() - 0.5).abs()[mask]
+    gap = (r_gpu - r_cpu).abs()[mask]
+    log(f"  int8 witness: the first differing codes are in quantize call {first}, "
+        f"{int(mask.sum())} of {mask.numel()}; inputs card vs CPU up to there within "
+        f"{max(gaps):.3e} relative (calls: {[f'{g:.1e}' for g in gaps]}); the differing "
+        f"codes' CPU values lie {float(off.max()):.3e} code units at most from a .5 "
+        f"boundary, their card-CPU gap {float(gap.max()):.3e} at most")
+    if not (max(gaps) <= WITNESS_REL and bool((off <= gap + 1e-12).all())
+            and float(gap.max()) <= 2 * 127 * WITNESS_REL):
+        raise AssertionError(f"int8 witness: codes part at call {first} beyond fp32 roundoff: "
+                             f"input gaps {gaps}, boundary offsets {off.tolist()[:8]}, "
+                             f"card-CPU gaps {gap.tolist()[:8]}")
+
+
+def phase_train_parity(torch, fa, cv, kernels, prediction_type="epsilon", oq=None):
     """One make_loss_fn value and backward, then D's loss and backward at
     its latents (what the step's D update differentiates), on the card and
-    on the CPU."""
+    on the CPU. `prediction_type` (phase 20: "v_prediction"); with `oq`
+    (ops.quant) pass 1 runs W8A8 (--pass1_int8) and the activation codes of
+    the two sides are compared: the fp32 roundoff of the card and the CPU
+    puts some on either side of a code boundary, after which the int8
+    trajectories part, so the loss and the gradients are reported, not
+    gated."""
     from comat_tpu_torch.config import BLIPConfig
     from comat_tpu_torch.diffusion.schedulers import inference_timesteps
     from comat_tpu_torch.losses.gan import Discriminator, GanConfig, gan_d_loss
@@ -854,9 +935,25 @@ def phase_train_parity(torch, fa, cv, kernels):
     from comat_tpu_torch.training.attrcon import make_attrcon_extra_losses
 
     cfg = dataclasses.replace(fp32_config("sd_1_5_attrcon", 256, lora_rank=128),
-                              capture_layers=PARITY_CAPTURE)
+                              capture_layers=PARITY_CAPTURE, prediction_type=prediction_type)
     bcfg = dataclasses.replace(BLIPConfig.large(), dtype=torch.float32)
-    tcfg = ts.TrainConfig(total_step=4, K=2, resolution=256, gan_loss=True, attrcon=True)
+    tcfg = ts.TrainConfig(total_step=4, K=2, resolution=256, gan_loss=True, attrcon=True,
+                          pass1_int8=oq is not None)
+    codes = {"cpu": [], "cuda": []}
+    inputs = {"cpu": [], "cuda": []}     # (x, scales) of the first WITNESS_CALLS
+    if oq is not None:
+        quantize = oq.quantize
+
+        def recording(x, groups, role="act"):
+            q, sc = quantize(x, groups, role)
+            if role == "act":
+                side = x.device.type
+                codes[side].append(q.cpu())
+                if len(inputs[side]) < WITNESS_CALLS:
+                    inputs[side].append((x.float().cpu(), sc.cpu()))
+            return q, sc
+
+        oq.quantize = recording
     gan_cfg = GanConfig(lora_rank=128)
     t0 = time.perf_counter()
     cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
@@ -904,14 +1001,18 @@ def phase_train_parity(torch, fa, cv, kernels):
         return {k: float(v) for k, v in metrics.items()}, grads
 
     t0 = time.perf_counter()
-    metrics_cpu, grads_cpu = run(cpu, blip_cpu, d_cpu)
-    t_cpu = time.perf_counter() - t0
-    del cpu, blip_cpu, d_cpu
-    reset(kernels)
-    t0 = time.perf_counter()
-    metrics_gpu, grads_gpu = run(gpu, blip_gpu, d_gpu)
-    torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
+    try:
+        metrics_cpu, grads_cpu = run(cpu, blip_cpu, d_cpu)
+        t_cpu = time.perf_counter() - t0
+        del cpu, blip_cpu, d_cpu
+        reset(kernels)
+        t0 = time.perf_counter()
+        metrics_gpu, grads_gpu = run(gpu, blip_gpu, d_gpu)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+    finally:
+        if oq is not None:
+            oq.quantize = quantize
     counts = counts_by_role(fa, cv)
     by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
     scale = max(float(g.abs().max()) for g in grads_cpu.values())
@@ -941,6 +1042,29 @@ def phase_train_parity(torch, fa, cv, kernels):
     want_keys = {"step_loss", "reward_blip", "G_loss", "token_loss", "pixel_loss", "D_loss"}
     if not want_keys <= set(metrics_gpu):
         raise AssertionError(f"train parity metrics lack {want_keys - set(metrics_gpu)}")
+    if oq is not None:
+        calls = list(zip(codes["cpu"], codes["cuda"]))
+        differ = [int((a != b).sum()) for a, b in calls]
+        total = sum(a.numel() for a, _ in calls)
+        per_call = len(calls) // tcfg.total_step
+        first = sum(differ[:per_call])
+        log(f"  int8 activation codes card vs CPU: {sum(differ)} of {total} differ "
+            f"({sum(differ) / max(total, 1):.3e}) over {len(calls)} quantize calls "
+            f"({len(codes['cpu'])} on the CPU); in pass 1's first UNet call {first} of "
+            f"{sum(a.numel() for a, _ in calls[:per_call])}, in its first layers "
+            f"{differ[:8]} of {[a.numel() for a, _ in calls[:8]]}; step loss |card - CPU| "
+            f"{diffs['step_loss']:.3e}, worst leaf {worst:.3e} (reported, not gated)")
+        if len(codes["cpu"]) != len(codes["cuda"]) or not calls or not all(
+                math.isfinite(metrics_gpu[k]) for k in want_keys):
+            raise AssertionError(f"int8 parity: {len(codes['cpu'])} / {len(codes['cuda'])} "
+                                 f"quantize calls, metrics {metrics_gpu}")
+        _first_flip_at_a_boundary(torch, differ, calls, inputs)
+        if counts != PARITY_TRAIN_LAUNCHES:
+            raise AssertionError(f"train parity launched {counts}, "
+                                 f"expected {PARITY_TRAIN_LAUNCHES}")
+        del gpu, blip_gpu, d_gpu
+        torch.cuda.empty_cache()
+        return by_shape
     if not all(math.isfinite(metrics_gpu[k]) and diffs[k] <= LOSS_TOL for k in want_keys):
         raise AssertionError(f"train loss components card vs CPU differ: {diffs}")
     if not worst <= GRAD_TOL:
@@ -2764,6 +2888,376 @@ def phase_sdxl_surfaces(torch, fa, cv, kernels, index, sdxl_median, sdxl_peak):
     return shapes, batch
 
 
+# ------------------------------------------------------ W8A8 pass 1 (18-20)
+# W8A8 pass 1 (--pass1_int8): the kernels of ops/quant.py, which replace no
+# Pallas kernel (JAX runs W8A8 through XLA, comat_tpu/models/quant.py)
+INT8_REPLACES = {
+    "quant_s8": "none (XLA in JAX): comat_tpu/models/quant.py:43 _quant_dynamic, "
+                ":157 _weight_quant",
+    "dequant_s8": "none (XLA in JAX): comat_tpu/models/quant.py:54 _dequant_bias "
+                  "after :72 dot_general",
+    "conv_s8": "none (XLA in JAX): comat_tpu/models/quant.py:130 conv_general_dilated "
+               "and :54 _dequant_bias",
+}
+INT8_BATCHES = {"sd15": 4, "sdxl": SDXL_BATCH}     # phase 19's; CFG doubles them
+INT8_COS = 0.99          # JAX's gate, tests/test_quant.py: int8 against bf16
+INT8_STEPS = 3
+INT8_TIME_BUDGET_MS = 60.0
+STABILITY_STEPS = 10
+N_PHASES = 21
+
+
+def int8_counts(oq):
+    """Launches of the int8 kernels since the last reset, by role."""
+    q = oq.QUANT_KERNEL.launches_by_shape
+    return {"quant_act": sum(n for k, n in q.items() if k[-1] == "act"),
+            "quant_weight": sum(n for k, n in q.items() if k[-1] == "weight"),
+            "dequant": oq.DEQUANT_KERNEL.launches, "conv_s8": oq.CONV_KERNEL.launches}
+
+
+def _int8_pipelines(torch):
+    """SD1.5 and SDXL at published widths, bf16, LoRA 128 (the launchers'
+    rank), seeded: {"sd15": pipeline, "sdxl": pipeline}."""
+    from comat_tpu_torch.models.pipeline import DiffusionPipeline, make_pipeline_config
+
+    out = {}
+    for key, name in (("sd15", "sd_1_5"), ("sdxl", "sdxl")):
+        t0 = time.perf_counter()
+        cfg = make_pipeline_config(name, lora_rank=128, resolution=512)
+        pipe = DiffusionPipeline(cfg, device="cuda", seed=SEED + 21)
+        _nonzero_lora_b(torch, pipe.unet, torch.Generator().manual_seed(SEED + 22))
+        out[key] = pipe
+        torch.cuda.synchronize()
+        log(f"  {key}: weights made in {time.perf_counter() - t0:.1f} s; {_gib(torch)}")
+    return out
+
+
+def _prompt_ids(pipe, n):
+    from comat_tpu_torch.text.tokenizer import HashTokenizer
+
+    prompts = (TRAIN_PROMPTS * n)[:n]
+    V = pipe.cfg.text.vocab_size
+    tok = HashTokenizer(V)
+    enc, null = tok(prompts), tok([""] * n)
+    kw = {"eos_positions": enc["eos_positions"]}
+    if pipe.cfg.is_sdxl:
+        tok2 = HashTokenizer(V, pad_token_id=0)
+        kw.update(input_ids2=tok2(prompts)["input_ids"], null_ids2=tok2([""] * n)["input_ids"])
+    return enc["input_ids"], null["input_ids"], kw
+
+
+def _int8_layer_inputs(torch, unet, call):
+    """(name, layer, input) of every quantized layer in its first use during
+    `call()`, the bf16 UNet's own (no int8 set installed)."""
+    from comat_tpu_torch.models.quant import QConv2d, QLinear, quantizable
+
+    seen, hooks = {}, []
+    for name, m in unet.named_modules():
+        if isinstance(m, (QLinear, QConv2d)) and quantizable(name):
+            def pre(mod, args, name=name):
+                seen.setdefault(name, (mod, args[0].detach()))
+            hooks.append(m.register_forward_pre_hook(pre))
+    try:
+        with torch.no_grad():
+            call()
+    finally:
+        for h in hooks:
+            h.remove()
+    return [(n, m, x) for n, (m, x) in seen.items()]
+
+
+def _exact(torch, name, got, want) -> None:
+    """Raise unless the kernel's output equals the plain version's, bit for bit."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        d = (got.double() - want.double()).abs()
+        raise AssertionError(f"{name}: kernel and plain version differ ({int((d > 0).sum())} "
+                             f"elements, max {float(d.max()):.3e})")
+
+
+def phase_int8_kernels(torch, oq, pipes):
+    """18: every distinct quantized layer of SD1.5 at 512^2 (CFG batch 8)
+    and SDXL (CFG batch 12), the layer's real bf16 input and weight from one
+    guided UNet call of the seeded pipelines: the quantize kernel's codes and
+    scales (activations and weights), the int8 conv's int32 sums and its
+    bf16 epilogue, the dequantize after `torch._int_mm`, each equal to its
+    plain version bit for bit; times against the plain versions and the
+    yardsticks (bf16 cuDNN `F.conv2d` / `F.linear`, `torch._int_mm` with the
+    plain dequantize; the conv kernel as a 1x1 conv over the linear's rows
+    too). Returns the kernels line's entries."""
+    import torch.nn.functional as F
+
+    from comat_tpu_torch.models.quant import QConv2d, weight_quant
+
+    src = {"quant_s8": "comat_tpu_torch/csrc/quant_s8.cu",
+           "conv_s8": "comat_tpu_torch/csrc/conv_s8.cu"}
+    entries, done = [], set()
+
+    def tm(fn):
+        return time_ms(torch, fn, INT8_TIME_BUDGET_MS)
+
+    def add(e):
+        if (e["kernel"], tuple(e["key"])) not in done:
+            done.add((e["kernel"], tuple(e["key"])))
+            entries.append(e)
+            _log_entry(e)
+
+    def check_quant(x2, groups, role):
+        key = (groups, x2.numel() // groups, "bfloat16", role)
+        if (oq.QUANT_KERNEL.symbol, key) in done:
+            return
+        q, s = oq.quantize(x2, groups, role)
+        q_ref, s_ref = oq.quantize_ref(x2, groups)
+        _exact(torch, f"quantize {key}", q, q_ref)
+        _exact(torch, f"quantize scales {key}", s, s_ref)
+        times = (tm(lambda: oq.quantize(x2, groups, role)),
+                 tm(lambda: oq.quantize_ref(x2, groups)), None)
+        n = x2.numel()
+        add(_entry("quant_s8", src["quant_s8"], INT8_REPLACES["quant_s8"],
+                   oq.QUANT_KERNEL.symbol, key, key[:2], "bfloat16", 0.0, times, 4.0 * n,
+                   2 * n + n + 4 * groups, "none", ops_dtype="float32", role=role))
+
+    for model, pipe in pipes.items():
+        B = 2 * INT8_BATCHES[model]
+        unet = pipe.fused_unet()
+        ids, null, kw = _prompt_ids(pipe, INT8_BATCHES[model])
+        enc, nenc, added, null_added = pipe._encode_pair(
+            ids, null, kw["eos_positions"], None, kw.get("input_ids2"), kw.get("null_ids2"))
+        eps = pipe._pass1_eps_model(enc.context, nenc.context, 7.5, 0.0, unet, added,
+                                    null_added)
+        s = pipe.cfg.latent_size
+        lat = torch.randn(B // 2, s, s, 4, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(SEED + 23))
+        layers = _int8_layer_inputs(torch, unet, lambda: eps(lat, 981))
+        n_conv = sum(isinstance(m, QConv2d) for _, m, _ in layers)
+        log(f"  {model}: {len(layers)} quantized layers ({n_conv} conv), CFG batch {B}")
+        for name, layer, x in layers:
+            w = layer.weight.detach()
+            wq, ws = weight_quant(w)
+            w2 = w if w.dim() == 2 else w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+            check_quant(w2.contiguous(), w2.shape[0], "weight")
+            bias = None if layer.bias is None else layer.bias.detach().float()
+            N = w.shape[0]
+            if isinstance(layer, QConv2d):
+                ks, st, pd = layer.kernel_size[0], layer.stride[0], layer.padding[0]
+                xn = x.permute(0, 2, 3, 1).contiguous()
+                check_quant(xn, xn.shape[0], "act")
+                xq, sx = oq.quantize_ref(xn, xn.shape[0])
+                Bx, H, W, C = xn.shape
+                key = (Bx, H, W, C, N, ks, st, "bfloat16")
+                if (oq.CONV_KERNEL.symbol, key) in done:
+                    continue
+                acc = oq.conv_s8(xq, wq, ks, st, pd, torch.int32)
+                acc_ref = oq.conv_s8_ref(xq, wq, ks, st, pd)
+                _exact(torch, f"conv_s8 sums {key}", acc, acc_ref)
+                Ho, Wo = acc.shape[1:3]
+                y = oq.conv_s8(xq, wq, ks, st, pd, torch.bfloat16, sx, ws, bias)
+                y_ref = oq.dequant_ref(acc_ref.reshape(-1, N), sx, Ho * Wo, ws, bias,
+                                       torch.bfloat16).reshape(y.shape)
+                _exact(torch, f"conv_s8 bf16 {key}", y, y_ref)
+                M = Bx * Ho * Wo
+                times = (tm(lambda: oq.conv_s8(xq, wq, ks, st, pd, torch.bfloat16, sx, ws,
+                                               bias)),
+                         tm(lambda: oq.dequant_ref(oq.conv_s8_ref(xq, wq, ks, st, pd)
+                                                   .reshape(-1, N), sx, Ho * Wo, ws, bias,
+                                                   torch.bfloat16)),
+                         tm(lambda: F.conv2d(x, w, layer.bias, st, pd)))
+                add(_entry("conv_s8", src["conv_s8"], INT8_REPLACES["conv_s8"],
+                           oq.CONV_KERNEL.symbol, key, key[:7], "bfloat16", 0.0, times,
+                           2.0 * M * N * ks * ks * C,
+                           xn.numel() + wq.numel() + 4 * (Bx + 2 * N) + 2 * M * N,
+                           "F.conv2d bf16 (cuDNN)", ops_dtype="int8", layer=name))
+            else:
+                K = x.shape[-1]
+                x2 = x.reshape(-1, K).contiguous()
+                M = x2.shape[0]
+                check_quant(x2, M, "act")
+                key = (M, N, "bfloat16")
+                if (oq.DEQUANT_KERNEL.symbol, key) in done:
+                    continue
+                xq, sx = oq.quantize_ref(x2, M)
+                acc = torch._int_mm(xq, wq.t())
+                acc_ref = (xq.double() @ wq.double().t()).round().to(torch.int32)
+                _exact(torch, f"_int_mm sums {key}", acc, acc_ref)
+                y = oq.dequant(acc, sx, 1, ws, bias, torch.bfloat16)
+                _exact(torch, f"dequant {key}", y, oq.dequant_ref(acc, sx, 1, ws, bias,
+                                                           torch.bfloat16))
+                # the other route: the conv kernel as a 1x1 conv over the M rows
+                # with its epilogue (timed only: one scale for all rows)
+                x4, sx1 = xq.reshape(1, M, 1, K), sx[:1].contiguous()
+                t_conv = tm(lambda: oq.conv_s8(x4, wq, 1, 1, 0, torch.bfloat16, sx1, ws, bias))
+                t_mm = tm(lambda: torch._int_mm(xq, wq.t()))
+                times = (tm(lambda: oq.dequant(acc, sx, 1, ws, bias, torch.bfloat16)),
+                         tm(lambda: oq.dequant_ref(acc, sx, 1, ws, bias, torch.bfloat16)),
+                         tm(lambda: oq.dequant_ref(torch._int_mm(xq, wq.t()), sx, 1, ws,
+                                                   bias, torch.bfloat16)))
+                add(_entry("dequant_s8", src["quant_s8"], INT8_REPLACES["dequant_s8"],
+                           oq.DEQUANT_KERNEL.symbol, key, key[:2], "bfloat16", 0.0, times,
+                           3.0 * M * N, 4 * M * N + 2 * M * N + 4 * (M + 2 * N),
+                           "torch._int_mm + plain dequantize", ops_dtype="float32",
+                           layer=name, K=K, int_mm_ms=t_mm, conv_s8_1x1_ms=t_conv,
+                           linear_bf16_ms=tm(lambda: F.linear(x2, w, layer.bias)),
+                           gemm_bound_ms=bound_ms(2.0 * M * N * K, M * K + N * K + 4 * M * N,
+                                                  "int8")[0]))
+        del layers
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_int8_pass1(torch, kernels, oq, pipes):
+    """19(a): pass 1 alone, 50 guided DDPM calls through the fused twin, bf16
+    and W8A8 from the same draws, in turns (bf16, int8, int8, bf16): SD1.5
+    at batch 4 and SDXL at batch 6 (CFG 8 and 12). Returns {model: launches
+    by kernel and shape of one int8 run}."""
+    from comat_tpu_torch.models.quant import QConv2d, quantize_unet
+
+    shapes = {}
+    for model, pipe in pipes.items():
+        n = INT8_BATCHES[model]
+        unet = pipe.fused_unet()
+        ids, null, kw = _prompt_ids(pipe, n)
+        s = pipe.cfg.latent_size
+        g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+        lat0 = torch.randn(n, s, s, 4, generator=g, device="cuda")
+        noise = torch.randn(50, n, s, s, 4, generator=g, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        weights = quantize_unet(unet)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        n_layers = len(weights)
+        nbytes = sum(t.numel() * t.element_size() for w in weights.values()
+                     for t in w if t is not None)
+        n_conv = sum(isinstance(unet.get_submodule(k), QConv2d) for k in weights)
+        del weights
+        runs, out = [], {}
+        for int8 in (False, True, True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            if int8 and int8 not in out:
+                reset(kernels)
+            t0 = time.perf_counter()
+            lat = pipe.generate(ids, null, num_inference_steps=50, output_type="latent",
+                                latents0=lat0, step_noise=noise, unet=unet, int8=int8, **kw)
+            torch.cuda.synchronize()
+            runs.append((int8, time.perf_counter() - t0,
+                         (torch.cuda.max_memory_allocated() - held) / 2 ** 30))
+            if int8 not in out:
+                out[int8] = lat.float()
+                if int8:
+                    counts = {**int8_counts(oq), "flash_fwd": kernels[0].launches}
+                    shapes[model] = {k.symbol: dict(k.launches_by_shape) for k in kernels}
+        a, b = out[False].double().flatten(), out[True].double().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        t_bf = [t for i8, t, _ in runs if not i8]
+        t_i8 = [t for i8, t, _ in runs if i8]
+        log(f"  {model} pass 1, batch {n} (CFG {2 * n}), 50 guided calls: bf16 "
+            f"{t_bf[0]:.3f} / {t_bf[1]:.3f} s, int8 {t_i8[0]:.3f} / {t_i8[1]:.3f} s "
+            f"(int8 / bf16 {sum(t_i8) / sum(t_bf):.3f}); peak above the weights held: "
+            + ", ".join(f"{'int8' if i8 else 'bf16'} {gib:.2f} GiB" for i8, _, gib in runs))
+        log(f"  {model} int8 weight set: {n_layers} layers ({n_conv} conv), "
+            f"{nbytes / 1e9:.3f} GB, quantized in {t_quant:.3f} s; cos of the final "
+            f"latents int8 vs bf16 {cos:.6f} (gate > {INT8_COS}); launches of one int8 "
+            f"run {counts}")
+        want = {"quant_act": 50 * n_layers, "quant_weight": n_layers,
+                "dequant": 50 * (n_layers - n_conv), "conv_s8": 50 * n_conv}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"{model} int8 pass 1 launched {counts}, expected {want}")
+        if not (torch.isfinite(out[True]).all() and cos > INT8_COS):
+            raise AssertionError(f"{model} int8 pass 1: cos {cos:.6f} against bf16")
+    return shapes
+
+
+def phase_int8_trainer(torch, fa, cv, oq, kernels, cli_argv, cli_step1, cli_median,
+                       cli_peak):
+    """19(b): the trainer on comat_tpu_torch/scripts/sd15.sh's flags (phase
+    9's run, Grounded-SAM's split step) with --pass1_int8, INT8_STEPS steps
+    of `Trainer.train_one` from the same seed and draws. Returns the
+    launches by kernel and shape."""
+    from comat_tpu_torch.models.quant import QConv2d, QLinear, quantizable
+    from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.arguments import parse_args
+    from comat_tpu_torch.training.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke", "int8_trainer")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    argv = list(cli_argv) + ["--output_dir", work, "--max_train_steps", str(INT8_STEPS),
+                             "--pass1_int8"]
+    log("  argv: " + " ".join(argv))
+    probe = lambda: {**counts_by_role(fa, cv), **int8_counts(oq)}  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    trainer = Trainer(parse_args(argv), probe=probe)
+    assert trainer.tcfg.pass1_int8 and trainer.tcfg.gradient_checkpointing
+    kinds = [isinstance(m, QConv2d) for n, m in trainer.pipeline.unet.named_modules()
+             if isinstance(m, (QLinear, QConv2d)) and quantizable(n)]
+    prompts = iter(trainer.dataset.epoch(0))
+    rows = [trainer.train_one(next(prompts)) for _ in range(INT8_STEPS)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    roles = _cli_roles(trainer)
+    keys = ("s_step", *ts.PHASES)
+    for i, r in enumerate(rows, 1):
+        log(f"  step {i}: loss {r['step_loss']:.4f}, G_loss {r['G_loss']:.4f}, grad_norm "
+            f"{r['grad_norm']:.4e}; " + ", ".join(f"{k} {r[k]:.3f}" for k in keys))
+    median = _median(rows[1:], keys)
+    log(f"  int8 trainer: {median['s_step']:.3f} s per step on the device (median of steps "
+        f"2-{INT8_STEPS}), pass 1 {median['s_pass1']:.3f} s; phase 9, same run: "
+        f"{cli_median['s_step']:.3f} s, pass 1 {cli_median['s_pass1']:.3f} s; peak memory "
+        f"{peak:.1f} GiB (phase 9 {cli_peak:.1f}); step-1 loss {rows[0]['step_loss']:.6f}, "
+        f"phase 9's bf16 step 1 from the same draws {cli_step1:.6f} (|delta| "
+        f"{abs(rows[0]['step_loss'] - cli_step1):.3e})")
+    log("  split: " + ", ".join(f"{k} {median[k]:.3f} (phase 9 {cli_median[k]:.3f})"
+                                for k in ts.PHASES))
+    L, Lc = len(kinds), sum(kinds)
+    per_step = {"quant_act": 50 * L, "quant_weight": L, "dequant": 50 * (L - Lc),
+                "conv_s8": 50 * Lc}
+    want_roles = {role: {k: n * INT8_STEPS for k, n in c.items()}
+                  for role, c in CLI_LAUNCHES.items()}
+    want_roles["pass1"].update({k: n * INT8_STEPS for k, n in per_step.items()})
+    log(f"  launches by role, {INT8_STEPS} steps: {roles} (predicted {want_roles})")
+    if not all(math.isfinite(r[k]) for r in rows for k in ("step_loss", "G_loss", "D_loss",
+                                                           "grad_norm")):
+        raise AssertionError(f"int8 trainer metrics: {rows}")
+    if roles != want_roles:
+        raise AssertionError(f"int8 trainer launched {roles}, expected {want_roles}")
+    shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return shapes
+
+
+def phase_stability(torch, kernels):
+    """21: tools/stability_run.py on the card, STABILITY_STEPS steps of
+    bench's default step (SD1.5 512^2, batch 4, the reduced recipe).
+    Returns the launches by kernel and shape."""
+    from comat_tpu_torch.tools import stability_run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset(kernels)
+    rec = stability_run.main(["--steps", str(STABILITY_STEPS)])
+    secs = rec["seconds"]
+    med = sorted(secs)[len(secs) // 2]
+    steady = secs[2:]
+    med2 = sorted(steady)[len(steady) // 2]
+    log(f"  stability on {rec['device']}: " + ", ".join(f"{x:.3f}" for x in secs)
+        + f" s; spread (max - min) / median {(max(secs) - min(secs)) / med:.3f} over all "
+        f"steps, {(max(steady) - min(steady)) / med2:.3f} from step 2; steady "
+        f"{rec['steady_s']:.3f} s/step, {rec['images_per_s']:.3f} images/s; all finite "
+        f"{rec['all_finite']}")
+    if len(secs) != STABILITY_STEPS or not rec["all_finite"]:
+        raise AssertionError(f"stability run: {rec}")
+    return {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+
+
 def main() -> int:
     import torch
 
@@ -2774,6 +3268,7 @@ def main() -> int:
     from comat_tpu_torch.ops import _build
     from comat_tpu_torch.ops import conv3x3 as cv
     from comat_tpu_torch.ops import flash_attention as fa
+    from comat_tpu_torch.ops import quant as oq
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2790,9 +3285,10 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    header("[1/17] build")
+    header(f"[1/{N_PHASES}] build")
     t0 = time.perf_counter()
-    paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw"])
+    paths = _build.build(["flash_fwd", "flash_bwd", "conv3x3", "conv3x3_dw", "quant_s8",
+                          "conv_s8"])
     log(f"  built {len(paths)} sources in {time.perf_counter() - t0:.1f} s")
     for path in paths.values():
         if os.path.exists(path + ".log"):
@@ -2801,79 +3297,99 @@ def main() -> int:
                                            "warning")):
                     log("  " + line.strip())
     phase_sass(paths)
-    kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL]
+    kernels = [fa.KERNEL, fa.DQ_KERNEL, fa.DKV_KERNEL, cv.KERNEL, cv.DW_KERNEL, *oq.KERNELS]
 
-    header("[2/17] kernels against their plain versions")
+    header(f"[2/{N_PHASES}] kernels against their plain versions")
     t0 = time.perf_counter()
     entries = phase_kernels(torch, fa, cv)
     log(f"  {len(entries)} checks in {time.perf_counter() - t0:.1f} s")
 
-    header("[3/17] generation: SD1.5 fp32 256^2 card vs CPU")
+    header(f"[3/{N_PHASES}] generation: SD1.5 fp32 256^2 card vs CPU")
     phase_parity(torch, kernels)
 
-    header("[4/17] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
+    header(f"[4/{N_PHASES}] full train step: SD1.5 + BLIP-large + D fp32 256^2 card vs CPU")
     tune_vae_shapes = phase_train_parity(torch, fa, cv, kernels)
 
-    header("[5/17] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
+    header(f"[5/{N_PHASES}] generation main path: SD1.5 512^2 bf16, 2 prompts, 50 DDPM steps")
     gen = phase_main(torch, kernels)
     gen_shapes = gen[0]
 
-    header("[6/17] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
+    header(f"[6/{N_PHASES}] train main path: SD1.5 + BLIP-large 512^2, 4 prompts, 50 steps, K 5")
     train_shapes, _, (pipe, blip, batch) = phase_train_main(torch, fa, cv, kernels)
 
-    header("[7/17] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
+    header(f"[7/{N_PHASES}] train with the VAE trained: the recipe, bf16 decoder, fp32 masters")
     tune_bf16_shapes, _, _ = phase_train_tune_vae(torch, fa, cv, kernels, pipe, blip, batch)
 
-    header("[8/17] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
+    header(f"[8/{N_PHASES}] full recipe: + GAN (D LoRA 128) + attribute concentration, A 2")
     full_shapes, full_median, full_peak = phase_train_full(torch, fa, cv, kernels, pipe,
                                                            blip, batch)
     del pipe, blip, batch
 
-    header("[9/17] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
+    header(f"[9/{N_PHASES}] trainer CLI: comat_tpu_torch/scripts/sd15.sh's flags (Grounded-SAM), "
         f"512^2, batch 4, {CLI_STEPS} steps, then a run resumed at step {CLI_RESUME}")
     cli_shapes, encode_shapes, cli_median, cli_peak, cli = phase_trainer_cli(
         torch, fa, cv, kernels, full_median, full_peak)
 
-    header("[10/17] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
+    header(f"[10/{N_PHASES}] Grounded-SAM: GroundingDINO-T 800^2 + FastSAM-x 512^2 fp32 card vs CPU, "
         "then bf16 at batch 4")
     phase_gsam(torch)
 
-    header("[11/17] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
+    header(f"[11/{N_PHASES}] SDXL: both text towers, one guided UNet call at 512^2 and the decode, "
         "fp32 card vs CPU")
     phase_sdxl_parity(torch, fa, cv, kernels)
 
-    header("[12/17] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
+    header(f"[12/{N_PHASES}] SDXL trainer CLI: comat_tpu_torch/scripts/sdxl.sh's flags (SD1.5 D, "
         f"Grounded-SAM, remat), 512^2, batch {SDXL_BATCH}, {SDXL_STEPS} steps")
     sdxl_shapes, sdxl_encode_shapes, sdxl_median, sdxl_peak, sdxl_index = phase_sdxl_trainer(
         torch, fa, cv, kernels, cli_median, cli_peak)
 
-    header("[13/17] snapshots: SD1.5 and BLIP-large fp32 in a hub cache, the generator and "
+    header(f"[13/{N_PHASES}] snapshots: SD1.5 and BLIP-large fp32 in a hub cache, the generator and "
         f"the trainer ({SNAPSHOT_STEPS} steps) from them; SDXL's fp16 variant files")
     snap_gen_shapes, snap_cli_shapes = phase_snapshots(torch, fa, cv, kernels, gen, cli)
-    cli_index = cli["index"]
+    cli_index, cli_argv, cli_step1 = cli["index"], cli["argv"], cli["step1"]["loss"]
     del gen, cli
 
-    header(f"[14/17] latent store: tools.gan_gt_generate on {GAN_GT_PROMPTS} prompts at 512^2, "
+    header(f"[14/{N_PHASES}] latent store: tools.gan_gt_generate on {GAN_GT_PROMPTS} prompts at 512^2, "
         f"then the trainer on it with --gradient_accumulation_steps {ACCUM_N}, "
         f"{ACCUM_STEPS} micro-steps and a resume at {ACCUM_RESUME}")
     store_shapes, accum_shapes = phase_gan_store_accum(torch, fa, cv, kernels, cli_median,
                                                        cli_peak)
 
-    header("[15/17] evaluator: BLIP-VQA base fp32 card vs CPU, then tools.evaluate on "
+    header(f"[15/{N_PHASES}] evaluator: BLIP-VQA base fp32 card vs CPU, then tools.evaluate on "
         f"{EVAL_PROMPTS} prompts at 512^2 (BLIP reward and BLIP-VQA binding)")
     eval_shapes = phase_evaluate(torch, fa, cv, kernels)
 
-    header("[16/17] SD1.5 surfaces: (a) --full_finetuning + text LoRA 8 + CLIP-L fp32 256^2 "
+    header(f"[16/{N_PHASES}] SD1.5 surfaces: (a) --full_finetuning + text LoRA 8 + CLIP-L fp32 256^2 "
            "card vs CPU; (b) sd15.sh's flags + " + " ".join(SURFACE_FLAGS)
            + f", {SURF_STEPS} steps, then a run resumed at step {SURF_RESUME}")
     phase_surfaces_parity(torch, fa, cv, kernels)
     surf_shapes, _, _ = phase_surfaces_trainer(torch, fa, cv, kernels, cli_index,
                                                cli_median, cli_peak)
 
-    header("[17/17] SDXL surfaces: sdxl.sh's flags + " + " ".join(SURFACE_FLAGS)
+    header(f"[17/{N_PHASES}] SDXL surfaces: sdxl.sh's flags + " + " ".join(SURFACE_FLAGS)
            + f", {SXS_STEPS} steps at batch {SDXL_BATCH} (or the largest that fits)")
     sxs_shapes, sxs_batch = phase_sdxl_surfaces(torch, fa, cv, kernels, sdxl_index,
                                                 sdxl_median, sdxl_peak)
+
+    header(f"[18/{N_PHASES}] int8 kernels: quantize, int8 conv, dequantize against their "
+           "plain versions at every quantized layer of SD1.5 (CFG 8) and SDXL (CFG 12)")
+    pipes = _int8_pipelines(torch)
+    entries += phase_int8_kernels(torch, oq, pipes)
+
+    header(f"[19/{N_PHASES}] W8A8 pass 1: 50 guided calls bf16 vs int8 (SD1.5 batch 4, "
+           f"SDXL batch {SDXL_BATCH}), then sd15.sh's flags + --pass1_int8, {INT8_STEPS} steps")
+    int8_shapes = phase_int8_pass1(torch, kernels, oq, pipes)
+    del pipes
+    int8_cli_shapes = phase_int8_trainer(torch, fa, cv, oq, kernels, cli_argv, cli_step1,
+                                         cli_median, cli_peak)
+
+    header(f"[20/{N_PHASES}] v-prediction: phase 4's fp32 card vs CPU, then with "
+           "--pass1_int8 (activation codes card vs CPU)")
+    phase_train_parity(torch, fa, cv, kernels, prediction_type="v_prediction")
+    phase_train_parity(torch, fa, cv, kernels, prediction_type="v_prediction", oq=oq)
+
+    header(f"[21/{N_PHASES}] stability: tools/stability_run.py, {STABILITY_STEPS} steps")
+    stability_shapes = phase_stability(torch, kernels)
     ends = [t for _, t, _ in starts[1:]] + [time.perf_counter()]
     log("  seconds a phase (GiB allocated at its start): " + ", ".join(
         f"{n} {end - t:.1f} ({held:.2f})" for (n, t, held), end in zip(starts, ends)))
@@ -2894,7 +3410,9 @@ def main() -> int:
              "sdxl_trainer_cli": sdxl_shapes, "snapshot_generate": snap_gen_shapes,
              "snapshot_trainer_cli": snap_cli_shapes, "gan_gt_generate": store_shapes,
              "accum_trainer_cli": accum_shapes, "evaluate": eval_shapes,
-             "surfaces_trainer_cli": surf_shapes, "sdxl_surfaces_trainer": sxs_shapes}
+             "surfaces_trainer_cli": surf_shapes, "sdxl_surfaces_trainer": sxs_shapes,
+             "int8_pass1_sd15": int8_shapes["sd15"], "int8_pass1_sdxl": int8_shapes["sdxl"],
+             "int8_trainer_cli": int8_cli_shapes, "stability": stability_shapes}
     if sxs_batch != SDXL_BATCH:
         log(f"  phase 17 ran at batch {sxs_batch}, whose shapes phase 2 does not time: "
             "its launches are left out of the kernels line")
@@ -2906,21 +3424,24 @@ def main() -> int:
     measured = {(e["kernel"], tuple(e["shape"]), e["dtype"]) for e in entries}
     for path in paths.values():
         for symbol, counts in path.items():
-            # a conv launch key ends in its role ("fwd" or "dx")
-            strip = 2 if symbol == cv.KERNEL.symbol else 1
+            # a conv launch key ends in its role ("fwd" or "dx"), a
+            # quantize's in its role ("act" or "weight")
+            strip = 2 if symbol in (cv.KERNEL.symbol, oq.QUANT_KERNEL.symbol) else 1
             missing = {k: n for k, n in counts.items()
                        if (symbol, k[:-strip], k[-strip]) not in measured}
             if missing:
                 raise AssertionError(f"{symbol}: main-path shapes not measured: {missing}")
     # each kernel's share of the main paths, from its per-shape times above
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv", "conv3x3_fwd", "conv3x3_dx", "conv3x3_dw"):
+                 "flash_attention_bwd_dkv", "conv3x3_fwd", "conv3x3_dx", "conv3x3_dw",
+                 "quant_s8", "dequant_s8", "conv_s8"):
         for path in paths:
             sel = [e for e in entries if e["name"] == name and e[f"launches_{path}"]]
             if not sel:
                 continue
             n = sum(e[f"launches_{path}"] for e in sel)
-            total_ms = {key: sum(e[f"launches_{path}"] * e[key] for e in sel)
+            total_ms = {key: (sum(e[f"launches_{path}"] * e[key] for e in sel)
+                              if all(e[key] is not None for e in sel) else math.nan)
                         for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
             log(f"  {name} on the {path} path: {n} launches x ms = "
                 f"{total_ms['ms']:.1f} ms (plain {total_ms['plain_ms']:.1f}, "

@@ -1,7 +1,7 @@
 """Noise schedule, affine sampler steps (DDPM fixed_small, DDIM) and the
 DPM-Solver++ 2M sampler.
 
-Port of comat_tpu/diffusion/schedulers.py. The tables are numpy: the
+Port of comat_tpu/diffusion/schedulers.py, `v_to_eps` included. The tables are numpy: the
 schedule is computed in fp64 and kept in fp32, the per-step coefficients
 are computed in fp64 from those fp32 tables and kept in fp32, exactly as
 the JAX package does, so both ports step with identical coefficients.
@@ -178,6 +178,21 @@ def ddpm_step_from_coeffs(
     )
     pred_x0 = float(coeffs.x0_from_sample[i]) * x + float(coeffs.x0_from_eps[i]) * e
     return prev.to(sample.dtype), pred_x0.to(sample.dtype)
+
+
+def v_to_eps(schedule: DiffusionSchedule, t, sample: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """A v-prediction output as epsilon at timestep t (an int, or one a
+    sample), JAX's `v_to_eps` (--prediction_type v_prediction): eps =
+    a v + s x with a = sqrt(acp_t), s = sqrt(1 - acp_t), in fp32, cast to
+    v's dtype. diffusers' v branch computes x0 = a x - s v, which the eps
+    branch gives exactly from this eps, so every eps-based table applies."""
+    acp = torch.as_tensor(schedule.alphas_cumprod, device=sample.device)[
+        torch.as_tensor(t, device=sample.device).long()]
+    while acp.dim() < sample.dim():
+        acp = acp[..., None]
+    out = torch.sqrt(acp) * v.float() + torch.sqrt(1.0 - acp) * sample.float()
+    return out.to(v.dtype)
 
 
 def sample_dpmpp_2m(

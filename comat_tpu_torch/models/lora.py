@@ -5,7 +5,9 @@ Port of comat_tpu/models/lora.py (`LoRADense`, `fuse_lora_tree`,
 frozen projection lives under `base` (an nn.Linear); the factors
 `lora_a` (in, r) and `lora_b` (r, out) are fp32 master weights in the
 JAX layout, and the branch runs in the base's compute dtype:
-y = base(x) + (x A) B.
+y = base(x) + (x A) B. The base is a `QLinear` (models/quant.py): under an
+installed int8 weight set it runs int8 and the LoRA branch stays in the
+layer's dtype beside it, as JAX's `LoRADense` over a `QDense`.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Dict, Iterable
 
 import torch
 from torch import nn
+
+from comat_tpu_torch.models.quant import QLinear
 
 
 class LoRALinear(nn.Module):
@@ -26,7 +30,7 @@ class LoRALinear(nn.Module):
         device=None,
     ):
         super().__init__()
-        self.base = nn.Linear(
+        self.base = QLinear(
             in_features, out_features, bias=bias, dtype=dtype, device=device
         )
         self.lora_rank = lora_rank

@@ -23,7 +23,11 @@ the bf16 UNet); with
 `capture=True` it also returns the cross-attention maps of the layers
 `cfg.capture_layers` at the chosen replay segments (attribute
 concentration). `forward(remat=)` and `DiffusionPipeline(fuse_pass1=False)`
-are JAX's memory-tight options (--gradient_checkpointing).
+are JAX's memory-tight options (--gradient_checkpointing);
+`forward(pass1_int8=)` / `presample(pass1_int8=)` / `generate(int8=)` run
+the no-grad sampling in W8A8 (--pass1_int8, models/quant.py), and
+`cfg.prediction_type="v_prediction"` converts every UNet output the
+samplers and the replay read from v to eps (JAX's `unet_apply`).
 """
 
 from __future__ import annotations
@@ -47,9 +51,11 @@ from comat_tpu_torch.diffusion.schedulers import (
     make_sampler_coeffs,
     make_schedule,
     sample_dpmpp_2m,
+    v_to_eps,
 )
 from comat_tpu_torch.models.clip_text import CLIPTextEncoder
 from comat_tpu_torch.models.lora import fuse_lora, is_lora_path
+from comat_tpu_torch.models.quant import pass1_w8a8
 from comat_tpu_torch.models.remat import Remat
 from comat_tpu_torch.models.unet import UNet2DConditionModel
 from comat_tpu_torch.models.vae import AutoencoderKL
@@ -70,6 +76,9 @@ class PipelineConfig:
     # --train_text_encoder_lora: the text towers' LoRA rank (JAX's
     # `text_lora_rank`; the trainer passes --lora_rank)
     text_lora_rank: int = 0
+    # --prediction_type: "epsilon", or "v_prediction", converted to eps at
+    # every UNet output the samplers and the replay read (`unet_apply`, pass 1)
+    prediction_type: str = "epsilon"
 
     @property
     def latent_size(self) -> int:
@@ -88,16 +97,22 @@ TINY_XL_CAPTURE = ("mid_4", "up_4", "up_8")
 
 def make_pipeline_config(
     name: str, lora_rank: int = 32, resolution: int = 512, tiny: bool = False,
-    text_lora_rank: int = 0,
+    text_lora_rank: int = 0, prediction_type: str = "epsilon",
 ) -> PipelineConfig:
     """`sd_1_5*` and `sdxl*` (sdxl, sdxl_unet, sdxl_attrcon,
     sdxl_attrcon_unet) at full or tiny width. A name with "attrcon" turns
     attribute concentration on (`attrcon`); every name carries its
     family's capture layer list, as in JAX. The tiny SDXL UNet's context
     is the two tiny towers' concatenation (32 + 32), as the real one's is
-    768 + 1280. `text_lora_rank`: LoRA on both text towers (0: none)."""
+    768 + 1280. `text_lora_rank`: LoRA on both text towers (0: none).
+    `prediction_type`: "epsilon" or "v_prediction"; anything else raises,
+    as in JAX (a typo would train a v-model in epsilon mode)."""
+    if prediction_type not in ("epsilon", "v_prediction"):
+        raise ValueError(f"prediction_type must be 'epsilon' or 'v_prediction', "
+                         f"got {prediction_type!r}")
     kw = dict(attrcon="attrcon" in name, lora_rank=lora_rank,
-              resolution=resolution, text_lora_rank=text_lora_rank)
+              resolution=resolution, text_lora_rank=text_lora_rank,
+              prediction_type=prediction_type)
     if name.startswith("sdxl"):
         if tiny:
             return PipelineConfig(
@@ -324,12 +339,24 @@ class DiffusionPipeline:
         weights (`fused_unet()` loads them). `remat`: block checkpointing
         (`UNet2DConditionModel.forward`). The LoRA'd UNet runs through the
         fp32 masters of its trained bf16 tensors where autograd records
-        (`set_masters`)."""
+        (`set_masters`). A v-prediction model's output is converted to eps
+        (`_as_eps`)."""
         kw = dict(capture=True, capture_layers=self.cfg.capture_layers) if capture else {}
         if fused:
-            return self.unet_inf(latents, t, context, added_cond, remat=remat, **kw)
-        return self._tower("unet", self.unet, latents, t, context, added_cond,
-                           remat=remat, **kw)
+            out = self.unet_inf(latents, t, context, added_cond, remat=remat, **kw)
+        else:
+            out = self._tower("unet", self.unet, latents, t, context, added_cond,
+                              remat=remat, **kw)
+        if capture:
+            return self._as_eps(out[0], t, latents), out[1]
+        return self._as_eps(out, t, latents)
+
+    def _as_eps(self, out: torch.Tensor, t, latents: torch.Tensor) -> torch.Tensor:
+        """The UNet's output at (latents, t) as eps: v converted under
+        `prediction_type="v_prediction"` (JAX's `unet_apply`), else as is."""
+        if self.cfg.prediction_type == "v_prediction":
+            return v_to_eps(self.schedule, t, latents, out)
+        return out
 
     def decode_image(self, latents: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """latents (B, h, w, 4) -> image (B, 8h, 8w, 3) as
@@ -357,11 +384,12 @@ class DiffusionPipeline:
     def _pass1_eps_model(self, context, null_context, guidance_scale,
                          guidance_rescale, unet: torch.nn.Module,
                          added: AddedCond = None, null_added: AddedCond = None):
-        """Pass 1's guided eps through `unet`, no gradients."""
+        """Pass 1's guided eps through `unet`, no gradients (v converted
+        to eps, as `unet_apply` does)."""
         detach = lambda ac: None if ac is None else {  # noqa: E731
             k: v.detach() for k, v in ac.items()}
         return make_cfg_eps_model(
-            lambda lat, t, ctx, *ac: unet(lat, t, ctx, *ac),
+            lambda lat, t, ctx, *ac: self._as_eps(unet(lat, t, ctx, *ac), t, lat),
             context.detach(),
             null_context.detach() if guidance_scale > 1.0 else None,
             guidance_scale,
@@ -393,6 +421,7 @@ class DiffusionPipeline:
         capture_idx: Optional[Sequence[int]] = None,
         mark: Optional[Callable[[str], None]] = None,
         remat: Remat = False,
+        pass1_int8: bool = False,
     ) -> Tuple[torch.Tensor, SampleResult]:
         """Differentiable online generation. Returns (image, result).
 
@@ -408,7 +437,11 @@ class DiffusionPipeline:
         `null_eos_positions`, S - 1 when None, as in JAX. Pass 1 runs without
         gradients, on the fused LoRA-free twin where the pipeline holds one
         (else on the LoRA'd UNet, unfused); pass 2 replays the K segments with cached-primal
-        UNet calls (`diffusion.sampler.sample_comat`).
+        UNet calls (`diffusion.sampler.sample_comat`). `pass1_int8`
+        (--pass1_int8) runs pass 1 alone in W8A8 (models/quant.py): that
+        UNet's weights, fused or the base beside the unfused LoRA, are
+        quantized once here and freed after pass 1; the replay and the
+        capture run the layers' own dtype.
 
         `remat` (JAX's `remat`: True, or an int R for the blocks at
         resolution >= R) checkpoints the UNet's blocks in the replay's
@@ -447,12 +480,13 @@ class DiffusionPipeline:
                                      generator=generator, device=self.device)
         step_noise = step_noise.to(self.device, torch.float32)
         if presampled is None:
-            _, eps_table, traj = sample_inference(
-                self._pass1_eps_model(enc.context, nenc.context, guidance_scale,
-                                      guidance_rescale, self._pass1_unet(), added,
-                                      null_added),
-                coeffs, latents0.to(self.device), step_noise=step_noise,
-            )
+            unet = self._pass1_unet()
+            with pass1_w8a8(unet, pass1_int8):
+                _, eps_table, traj = sample_inference(
+                    self._pass1_eps_model(enc.context, nenc.context, guidance_scale,
+                                          guidance_rescale, unet, added, null_added),
+                    coeffs, latents0.to(self.device), step_noise=step_noise,
+                )
         else:
             eps_table, traj = presampled
         if mark is not None:
@@ -520,18 +554,20 @@ class DiffusionPipeline:
         step_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         mark: Optional[Callable[[str], None]] = None,
+        pass1_int8: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Pass 1 alone, for callers that must see the image before the
         differentiable pass: returns (image, eps_table, latents_traj), the
         image unclamped; the tables go to `forward(presampled=...)` with the
-        same `step_noise`. Pass 1 runs as in `forward`; `mark("pass1")` is
-        called after it, before the decode."""
+        same `step_noise`. Pass 1 runs as in `forward` (`pass1_int8` too);
+        `mark("pass1")` is called after it, before the decode."""
         enc, nenc, added, null_added = self._encode_pair(
             input_ids, null_ids, eos_positions, null_eos_positions, input_ids2,
             null_ids2)
+        unet = self._pass1_unet()
         eps_model = self._pass1_eps_model(
             enc.context, nenc.context, guidance_scale, guidance_rescale,
-            self._pass1_unet(), added, null_added)
+            unet, added, null_added)
         if latents0 is None:
             latents0 = prepare_latents(
                 generator, enc.context.shape[0], self.cfg.resolution,
@@ -539,11 +575,12 @@ class DiffusionPipeline:
             )
         if step_noise is not None:
             step_noise = step_noise.to(self.device, torch.float32)
-        x, eps_table, traj = sample_inference(
-            eps_model,
-            make_sampler_coeffs(self.schedule, num_inference_steps, kind="ddpm"),
-            latents0.to(self.device), generator, step_noise=step_noise,
-        )
+        with pass1_w8a8(unet, pass1_int8):
+            x, eps_table, traj = sample_inference(
+                eps_model,
+                make_sampler_coeffs(self.schedule, num_inference_steps, kind="ddpm"),
+                latents0.to(self.device), generator, step_noise=step_noise,
+            )
         if mark is not None:
             mark("pass1")
         return self.decode_image(x), eps_table, traj
@@ -567,6 +604,7 @@ class DiffusionPipeline:
         step_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         unet: Optional[torch.nn.Module] = None,
+        int8: bool = False,
     ) -> torch.Tensor:
         """Text-to-image sampling without gradients.
 
@@ -577,7 +615,9 @@ class DiffusionPipeline:
         DPM++ draws no noise). `unet`: the sampler, as `fused_unet()`
         returns it (default: `fused_unet()` for this call). SDXL: tower 2
         reads `input_ids2` / `null_ids2` where given, and the null prompts'
-        pooled embed is taken at S - 1. Returns images
+        pooled embed is taken at S - 1. `int8`: sample in W8A8, the
+        sampler's weights quantized for this call (JAX's `generate(int8=)`).
+        Returns images
         (B, H, W, 3) clipped to [0, 1], or the final latents for
         `output_type="latent"`."""
         if kind not in ("ddpm", "ddim", "dpmpp"):
@@ -586,22 +626,24 @@ class DiffusionPipeline:
         enc, nenc, added, null_added = self._encode_pair(
             input_ids, null_ids, eos_positions, None, input_ids2, null_ids2)
         B = enc.context.shape[0]
+        unet = unet if unet is not None else self.fused_unet()
         eps_model = self._pass1_eps_model(
             enc.context, nenc.context, guidance_scale, guidance_rescale,
-            unet if unet is not None else self.fused_unet(), added, null_added)
+            unet, added, null_added)
         if latents0 is None:
             latents0 = prepare_latents(
                 generator, B, cfg.resolution, cfg.resolution, self.device
             )
-        if kind == "dpmpp":
-            latents = sample_dpmpp_2m(eps_model, self.schedule, num_inference_steps,
-                                      latents0.to(self.device))
-        else:
-            coeffs = make_sampler_coeffs(self.schedule, num_inference_steps, kind=kind)
-            latents, _, _ = sample_inference(
-                eps_model, coeffs, latents0.to(self.device), generator,
-                step_noise=step_noise,
-            )
+        with pass1_w8a8(unet, int8):
+            if kind == "dpmpp":
+                latents = sample_dpmpp_2m(eps_model, self.schedule, num_inference_steps,
+                                          latents0.to(self.device))
+            else:
+                coeffs = make_sampler_coeffs(self.schedule, num_inference_steps, kind=kind)
+                latents, _, _ = sample_inference(
+                    eps_model, coeffs, latents0.to(self.device), generator,
+                    step_noise=step_noise,
+                )
         if output_type == "latent":
             return latents
         return self.decode_image(latents).clamp(0.0, 1.0)

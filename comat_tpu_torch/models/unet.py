@@ -12,7 +12,9 @@ convs are the same product). Blocks follow the config's per-level depth
 and heads; a level with 0 transformer layers has none. Activations run NCHW in
 channels_last memory; the public layout is the JAX one, latents
 (B, h, w, 4). `forward(..., remat=)` checkpoints the resnet and
-transformer blocks that JAX's `_remat_at` picks (models/remat.py).
+transformer blocks that JAX's `_remat_at` picks (models/remat.py). The
+layers JAX builds as `QConv` / `QDense` / `QDenseGeneral` are `QConv2d` /
+`QLinear` (models/quant.py): plain while no int8 weight set is installed.
 
 Capture mode (`forward(..., capture=True)`) also returns the fp32
 cross-attention probabilities (B, heads, HW, 77) of every transformer
@@ -35,6 +37,7 @@ from torch import nn
 from comat_tpu_torch.config import UNetConfig
 from comat_tpu_torch.models import remat as rm
 from comat_tpu_torch.models.lora import LoRALinear
+from comat_tpu_torch.models.quant import QConv2d, QLinear
 from comat_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -72,12 +75,12 @@ class ResnetBlock2D(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.norm1 = nn.GroupNorm(groups, cin, eps=1e-5, **kw)
-        self.conv1 = nn.Conv2d(cin, cout, 3, padding=1, **kw)
+        self.conv1 = QConv2d(cin, cout, 3, padding=1, **kw)
         self.time_emb_proj = nn.Linear(temb_dim, cout, **kw)
         self.norm2 = nn.GroupNorm(groups, cout, eps=1e-5, **kw)
-        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1, **kw)
+        self.conv2 = QConv2d(cout, cout, 3, padding=1, **kw)
         self.conv_shortcut = (
-            nn.Conv2d(cin, cout, 1, **kw) if cin != cout else None
+            QConv2d(cin, cout, 1, **kw) if cin != cout else None
         )
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
@@ -121,7 +124,7 @@ class GEGLU(nn.Module):
 
     def __init__(self, dim: int, inner: int, dtype, device=None):
         super().__init__()
-        self.proj = nn.Linear(dim, 2 * inner, dtype=dtype, device=device)
+        self.proj = QLinear(dim, 2 * inner, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -134,7 +137,7 @@ class FeedForward(nn.Module):
         self.net = nn.ModuleList([
             GEGLU(dim, 4 * dim, dtype, device),
             nn.Identity(),
-            nn.Linear(4 * dim, dim, dtype=dtype, device=device),
+            QLinear(4 * dim, dim, dtype=dtype, device=device),
         ])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -168,12 +171,12 @@ class Transformer2DModel(nn.Module):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         self.norm = nn.GroupNorm(groups, dim, eps=1e-6, **kw)
-        self.proj_in = nn.Linear(dim, dim, **kw)
+        self.proj_in = QLinear(dim, dim, **kw)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(dim, ctx_dim, heads, lora_rank, **kw)
             for _ in range(layers)
         ])
-        self.proj_out = nn.Linear(dim, dim, **kw)
+        self.proj_out = QLinear(dim, dim, **kw)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 sink: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
@@ -190,8 +193,8 @@ class Transformer2DModel(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, ch: int, dtype, device=None):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=1, dtype=dtype,
-                              device=device)
+        self.conv = QConv2d(ch, ch, 3, stride=2, padding=1, dtype=dtype,
+                            device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
@@ -200,7 +203,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, ch: int, dtype, device=None):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, padding=1, dtype=dtype, device=device)
+        self.conv = QConv2d(ch, ch, 3, padding=1, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))

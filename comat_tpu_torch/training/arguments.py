@@ -2,10 +2,11 @@
 
 The port's own copy of comat_tpu/training/arguments.py (the ~65-flag
 contract that scripts/sd15.sh drives; the same flags, defaults and parse
-results), plus `--device` (default cuda). Flags whose paths the port
-does not have yet raise `NotImplementedError` naming their ROADMAP Queue
-1 item when set (`_check_ported`); the reference's CUDA-only flags are
-accepted as the JAX package accepts them. `launcher_argv` reads the
+results), plus `--device` (default cuda). The one flag whose path the
+port does not have yet, `--mesh_model_axis` above 1 (tensor parallelism),
+raises `NotImplementedError` naming its ROADMAP Queue 1 item
+(`_check_ported`); the reference's CUDA-only flags are accepted as the JAX
+package accepts them. `launcher_argv` reads the
 flags of a launcher script such as scripts/sd15.sh.
 """
 
@@ -19,9 +20,6 @@ from typing import List
 def _check_ported(args) -> None:
     """Raise for a set flag whose path is not ported, naming its item."""
     unported = [
-        ("--pass1_int8", args.pass1_int8, "ROADMAP Queue 1: opt-in extras (W8A8 pass 1)"),
-        ("--prediction_type", args.prediction_type not in (None, "epsilon"),
-         "ROADMAP Queue 1: opt-in extras (v-prediction)"),
         ("--mesh_model_axis", args.mesh_model_axis > 1,
          "ROADMAP Queue 1: opt-in extras (parallel/tp.py)"),
     ]
@@ -135,8 +133,7 @@ def parse_args(argv=None):
     p.add_argument("--pass1_int8", action="store_true",
                    help="W8A8 int8 numerics for the no-grad pass-1 "
                         "sampling forwards (models/quant.py); the "
-                        "differentiable replay stays bf16/fp32. "
-                        "not ported")
+                        "differentiable replay stays bf16/fp32")
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     # the reference's only branch is AdamW (training_script.py:
     # 224-225); 8-bit selection goes through --use_8bit_adam

@@ -4,9 +4,9 @@ GAN and attribute concentration.
 Port of comat_tpu/training/train_step.py (`TrainConfig`, `DiscState`,
 `partition_params`, `partition_disc_params`, `make_optimizer`,
 `make_d_optimizer`, `init_disc_state`, `sample_trained_idx`,
-`make_loss_fn`, `make_train_step`, `make_presample`) without the int8
-pass 1, which raises `NotImplementedError` naming its ROADMAP item. The
-trainable surface is JAX's: the LoRA factors (the UNet's, and the text
+`make_loss_fn`, `make_train_step`, `make_presample`), every flag of it
+ported: `pass1_int8` runs pass 1 (and a split step's presample) in W8A8
+(models/quant.py). The trainable surface is JAX's: the LoRA factors (the UNet's, and the text
 towers' at `text_lora_rank > 0`), the whole UNet under
 `full_finetuning`, the VAE and both text towers with `tune_vae` /
 `tune_text_encoder`; `use_8bit_adam` keeps AdamW's moments as int8
@@ -91,25 +91,14 @@ class TrainConfig:
     # --remat_min_res R: remat only the UNet blocks at resolution >= R
     # (and every decoder block); pass 1 stays fused unless the flag above
     remat_min_res: Optional[int] = None
+    # --pass1_int8: W8A8 dynamic quantization of pass 1's 50 no-grad UNet
+    # calls (the replay, the capture and D stay in the layers' dtype)
     pass1_int8: bool = False
     textenc_lr: Optional[float] = None   # --textenc_lora_lr
 
     @property
     def interval(self) -> int:
         return self.total_step // self.K
-
-
-# Flags whose paths are not ported yet, and the ROADMAP item of each, by
-# its title in Queue 1.
-_NOT_PORTED = (
-    ("pass1_int8", "ROADMAP Queue 1: opt-in extras (W8A8 pass 1)"),
-)
-
-
-def _check_ported(cfg: TrainConfig) -> None:
-    for flag, item in _NOT_PORTED:
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"TrainConfig.{flag}: not ported yet, {item}")
 
 
 def partition_params(
@@ -327,7 +316,6 @@ def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.Tensor],
                    initial_masters: Optional[Mapping[str, torch.Tensor]] = None,
                    lr_schedule: Optional[Callable[[int], float]] = None,
                    ) -> ClippedAdamW:
-    _check_ported(cfg)
     return ClippedAdamW(params, cfg, initial_masters, lr_schedule)
 
 
@@ -603,8 +591,8 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     (loss to add, metrics), e.g. `training.attrcon.make_attrcon_extra_losses`.
 
     `cfg.gradient_checkpointing` runs pass 1 unfused, as JAX does: the
-    pipeline must then hold no LoRA-free twin (`fuse_pass1=False`)."""
-    _check_ported(cfg)
+    pipeline must then hold no LoRA-free twin (`fuse_pass1=False`).
+    `cfg.pass1_int8` runs pass 1 in W8A8 on that UNet."""
     if (cfg.gradient_checkpointing and pipeline.cfg.lora_rank > 0
             and pipeline.unet_inf is not None):
         raise ValueError("gradient_checkpointing runs pass 1 unfused: build the "
@@ -644,7 +632,7 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             latents0=draws.latents0, step_noise=draws.step_noise,
             capture=cfg.attrcon, capture_idx=draws.attrcon_draws, mark=mark,
             remat=cfg.remat_min_res if cfg.remat_min_res else cfg.gradient_checkpointing,
-            presampled=presampled,
+            presampled=presampled, pass1_int8=cfg.pass1_int8,
         )
         mark("decoded")
         hook(image, "decode_bwd<")    # "decode_bwd>": see pipeline.forward
@@ -808,7 +796,7 @@ def make_presample(pipeline: DiffusionPipeline, cfg: TrainConfig):
             eos_positions=batch.get("eos_positions"),
             input_ids2=batch.get("input_ids2"), null_ids2=batch.get("null_ids2"),
             latents0=draws.latents0, step_noise=draws.step_noise,
-            mark=lambda name: mark("presample_" + name),
+            mark=lambda name: mark("presample_" + name), pass1_int8=cfg.pass1_int8,
         )
         mark("presampled")
         return image, eps_table, traj

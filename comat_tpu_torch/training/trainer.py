@@ -167,7 +167,9 @@ class Trainer:
         self.pcfg = make_pipeline_config(
             args.pretrain_model_name, lora_rank=args.lora_rank,
             resolution=args.resolution, tiny=tiny,
-            text_lora_rank=args.lora_rank if args.train_text_encoder_lora else 0)
+            text_lora_rank=args.lora_rank if args.train_text_encoder_lora else 0,
+            # --prediction_type: None is the model's own, epsilon for SD1.5/SDXL
+            prediction_type=args.prediction_type or "epsilon")
         train_text = args.tune_text_encoder or args.train_text_encoder_lora
         self.blip_cfg = BLIPConfig.tiny() if tiny else BLIPConfig.large()
         self.tcfg = TrainConfig(
@@ -187,6 +189,7 @@ class Trainer:
             use_8bit_adam=args.use_8bit_adam,
             gradient_checkpointing=args.gradient_checkpointing,
             remat_min_res=args.remat_min_res,
+            pass1_int8=args.pass1_int8,
             textenc_lr=args.textenc_lora_lr if train_text else None,
         )
 

@@ -270,15 +270,14 @@ def test_clipped_adamw_matches_optax(scale, textenc_lr):
 
 
 def test_unported_flags_raise():
-    """The flags still unported raise and name their ROADMAP item; the
-    GAN, attribute concentration, remat, gradient accumulation and 8-bit
-    Adam, ported, do not."""
-    for flag, value in (("pass1_int8", True),):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "):
-            tts.make_optimizer(tts.TrainConfig(**{flag: value}), {})
+    """No flag of the step is left unported: the GAN, attribute
+    concentration, remat, gradient accumulation, 8-bit Adam and the int8
+    pass 1 build the optimizer (the parser's one refusal,
+    --mesh_model_axis, is held in tests/test_torch_trainer_cli.py)."""
     tts.make_optimizer(tts.TrainConfig(gan_loss=True, attrcon=True,
                                        gradient_checkpointing=True, remat_min_res=64,
-                                       gradient_accumulation_steps=2, use_8bit_adam=True),
+                                       gradient_accumulation_steps=2, use_8bit_adam=True,
+                                       pass1_int8=True),
                        {"unet.a": torch.nn.Parameter(torch.zeros(2))})
 
 

@@ -102,11 +102,15 @@ def rel(got, want):
 
 
 def jax_case(name, res, steps, K, rank, text_lora_rank=0, edit_cfg=None,
-             partition=None, **train_kw):
+             partition=None, split=False, **train_kw):
     """JAX's loss, gradients and post-step trainable leaves for one step of
     `name`'s tiny pipeline (`edit_cfg(pcfg)` edits its config), the
     trainable surface `partition` (`jts.partition_params` keywords) and
-    `jts.TrainConfig(**train_kw)`; with the port's weights, batch and draws."""
+    `jts.TrainConfig(**train_kw)`; with the port's weights, batch and draws.
+    `split`: JAX's split step, its presample program (pass 1, as the
+    trainer runs it for Grounded-SAM) and then the step replaying pass 1's
+    tables, which the case's batch then holds (`eps_table`,
+    `latents_traj`, numpy)."""
     jax.config.update("jax_default_matmul_precision", "highest")
     pcfg = jpipe.make_pipeline_config(name, lora_rank=rank, text_lora_rank=text_lora_rank,
                                       resolution=res, tiny=True)
@@ -148,6 +152,12 @@ def jax_case(name, res, steps, K, rank, text_lora_rank=0, edit_cfg=None,
     trainable, frozen = jts.partition_params(params, **(partition or {}))
     loss_fn = jts.make_loss_fn(pipe, blip, jcfg)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    if split:
+        state0 = jts.TrainState(jnp.zeros((), jnp.int32), trainable, None)
+        _, eps_table, traj = jax.jit(jts.make_presample(pipe, jcfg))(
+            state0, frozen, jbatch, jax.random.PRNGKey(5))
+        jbatch.update(eps_table=eps_table, latents_traj=traj)
+        batch.update(eps_table=np.asarray(eps_table), latents_traj=np.asarray(traj))
     (loss, (metrics, _)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         trainable, frozen, blip_params, jbatch, rng0, None)
     opt = jts.make_optimizer(jcfg)

@@ -196,8 +196,28 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    to the first quantize call whose codes differ the two sides' inputs
    agree to fp32 roundoff, and there every differing code sits within
    that roundoff of a .5 boundary of the code grid (gated);
-21. stability: `tools/stability_run.py` for 10 steps (bench's default
-   SD1.5 step at batch 4): each step's seconds, their spread, all finite.
+21. stability: `tools/stability_run.py` for 6 steps (bench's default
+   SD1.5 step at batch 4): each step's seconds, their spread, all finite;
+22. data parallelism (`parallel/mesh.py`): (a) the trainer on sd15.sh's
+   flags (phase 9's argv) for 2 steps under a world-1 NCCL group: each
+   step's loss and every G and D trained tensor after step 2 equal phase
+   9's first two steps, run without a group, bit for bit; s_allreduce and
+   the bytes all-reduced a step printed; launches by role as phase 9's;
+   (b) two spawned processes on this one card joined by Gloo, each the
+   trainer at batch 2 for one step, against one process at batch 4 from
+   the same seed, both with the CenterPrior segmenter (Grounded-SAM's
+   masks move with bf16 roundoff in the image): the global loss within
+   1e-3 relative, each LoRA leaf's all-reduced gradient at cos >= 0.999
+   and its norm within 1 %, the two ranks' gradients and tensors equal,
+   their rows the one process's batch; each rank's peak and seconds
+   printed (two processes sharing one card: not a scaling figure);
+23. tensor parallelism (`parallel/tp.py`): two spawned ranks over Gloo
+   shard SD1.5's UNet at full width (fp32, TF32 off, LoRA 128) with
+   `apply_tp`; one guided call (batch 2, 512^2) and the LoRA backward of a
+   fixed weighting of eps against the unsharded UNet on the same inputs:
+   eps and every LoRA gradient at cos >= 0.9999 and max relative error <=
+   1e-2; kernel A launches at 4 heads where the unsharded call launches
+   at 8.
 Each phase prints the GiB allocated and reserved at its start. Then one
 JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
@@ -207,7 +227,9 @@ with the VAE trained (dw), the full recipe's step, the latent store's
 encoding, the trainer CLI's run, SDXL's latent store and trainer run,
 the generation and trainer run from the SD1.5 snapshot, the latent tool's
 store, the accumulated trainer's runs, the evaluator, phases 16(b) and
-17's trainers, phase 19's pass 1 (int8) and trainer and phase 21's steps. Weights are random (the real ones are not in the
+17's trainers, phase 19's pass 1 (int8) and trainer, phase 21's steps and
+phase 22(a)'s trainer (22(b) and 23 run in processes of their own, whose
+launches are checked there). Weights are random (the real ones are not in the
 repository); depth is not cut.
 """
 
@@ -1384,18 +1406,39 @@ def _cli_roles(trainer):
     return roles
 
 
-def record_first_step(trainer) -> dict:
+def record_grads(optimizer, out: dict) -> None:
+    """Wrap `optimizer.step` so that its first call leaves G's gradients,
+    after any all-reduce and before the clip, in `out` (fp32 numpy by
+    name)."""
+    inner = optimizer.step
+
+    def step(reduce=None, norm=None):
+        def seen(grads):
+            if reduce is not None:
+                reduce(grads)
+            if not out:
+                out.update({n: m.grad.detach().float().cpu().numpy()
+                            for n, m in optimizer.masters.items()})
+        return inner(seen, norm)
+
+    optimizer.step = step
+
+
+def record_first_step(trainer, steps: int = 1) -> dict:
     """Wrap the trainer's step so that its first call leaves the step loss
     and every G and D trainable tensor after it (on the host) in the dict
-    returned."""
-    step1, inner = {}, trainer.train_step
+    returned, and its first `steps` calls the same in its list "steps"."""
+    step1, inner = {"steps": []}, trainer.train_step
 
     def step(state, batch, **kw):
         state, metrics = inner(state, batch, **kw)
-        if not step1:
-            step1["loss"] = metrics["step_loss"]
-            step1["g"] = {n: p.detach().cpu() for n, p in state.trainable.items()}
-            step1["d"] = {n: p.detach().cpu() for n, p in trainer.d_state.trainable.items()}
+        if len(step1["steps"]) < steps:
+            step1["steps"].append({
+                "loss": metrics["step_loss"],
+                "g": {n: p.detach().cpu() for n, p in state.trainable.items()},
+                "d": {n: p.detach().cpu() for n, p in trainer.d_state.trainable.items()}})
+            if len(step1["steps"]) == 1:
+                step1.update(step1["steps"][0])
         return state, metrics
 
     trainer.train_step = step
@@ -1436,7 +1479,7 @@ def phase_trainer_cli(torch, fa, cv, kernels, full_median, full_peak):
     reset(kernels)
     t0 = time.perf_counter()
     trainer = Trainer(parse_args(argv_first), probe=probe)
-    step1 = record_first_step(trainer)
+    step1 = record_first_step(trainer, DDP_STEPS)
     trainer.train()
     trainer.metrics.close()
     torch.cuda.synchronize()
@@ -2903,8 +2946,8 @@ INT8_BATCHES = {"sd15": 4, "sdxl": SDXL_BATCH}     # phase 19's; CFG doubles the
 INT8_COS = 0.99          # JAX's gate, tests/test_quant.py: int8 against bf16
 INT8_STEPS = 3
 INT8_TIME_BUDGET_MS = 60.0
-STABILITY_STEPS = 10
-N_PHASES = 21
+STABILITY_STEPS = 6
+N_PHASES = 23
 
 
 def int8_counts(oq):
@@ -3258,6 +3301,320 @@ def phase_stability(torch, kernels):
     return {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
 
 
+# ---- phases 22-23: the process group ----
+
+DDP_STEPS = 2
+DDP_LOSS_REL = 1e-3      # world 2 against world 1 at twice the batch
+DDP_COS, DDP_NORM_REL = 0.999, 0.01
+TP_COS, TP_REL = 0.9999, 1e-2
+
+
+def _group_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(target, world, *args, timeout=900):
+    """`target(rank, world, port, out, *args)` in `world` spawned processes
+    on this card, joined by a Gloo group; returns their results by rank.
+    A rank's exception fails the call; every process is stopped."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    port = _group_port()
+    procs = [ctx.Process(target=target, args=(r, world, port, out, *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        while len(results) < world:
+            try:
+                rank, ok, value = out.get(timeout=timeout)
+            except queue.Empty:
+                raise AssertionError(f"ranks {sorted(set(range(world)) - set(results))} "
+                                     f"sent nothing in {timeout} s")
+            if not ok:
+                raise AssertionError(f"rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def _child(rank, world, port, out, fn, *args):
+    """A spawned rank: one card (cuda:0, shared), a Gloo group."""
+    import traceback
+    from datetime import timedelta
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        os.environ["LOCAL_RANK"] = "0"
+        sys.path.insert(0, REPO)
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=world, rank=rank,
+                                timeout=timedelta(minutes=10))
+        try:
+            out.put((rank, True, fn(torch, rank, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+
+
+def phase_ddp_world1(torch, fa, cv, kernels, cli_argv, cli_steps):
+    """22(a): the trainer on sd15.sh's flags (phase 9's argv) for DDP_STEPS
+    steps under a world-1 NCCL group: each step's loss, and G's and D's
+    trained tensors after the last, equal phase 9's first steps without a
+    group bit for bit. Returns the launches by kernel and shape."""
+    import torch.distributed as dist
+
+    from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.arguments import parse_args
+    from comat_tpu_torch.training.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke", "ddp_world1")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_group_port()}",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        probe = lambda: counts_by_role(fa, cv)  # noqa: E731
+        reset(kernels)
+        trainer = Trainer(parse_args(list(cli_argv) + ["--output_dir", work,
+                                                        "--max_train_steps",
+                                                        str(DDP_STEPS)]), probe=probe)
+        mesh = trainer.mesh
+        prompts = iter(trainer.dataset.epoch(0))
+        rows = [trainer.train_one(next(prompts)) for _ in range(DDP_STEPS)]
+        torch.cuda.synchronize()
+        shapes = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+        roles = _cli_roles(trainer)
+        g = {n: p.detach().cpu() for n, p in trainer.state.trainable.items()}
+        d = {n: p.detach().cpu() for n, p in trainer.d_state.trainable.items()}
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("s_step", *ts.PHASES)
+    for i, r in enumerate(rows, 1):
+        log(f"  step {i}: loss {r['step_loss']!r} (no group {cli_steps[i - 1]['loss']!r}); "
+            f"all-reduced {r['allreduce_bytes'] / 1e6:.1f} MB in s_allreduce "
+            f"{r['s_allreduce']:.4f} s; " + ", ".join(f"{k} {r[k]:.3f}" for k in keys))
+    ref = cli_steps[DDP_STEPS - 1]
+    differ = [f"g.{n}" for n, v in g.items() if not torch.equal(v, ref["g"][n])]
+    differ += [f"d.{n}" for n, v in d.items() if not torch.equal(v, ref["d"][n])]
+    losses_equal = all(r["step_loss"] == c["loss"] for r, c in zip(rows, cli_steps))
+    log(f"  mesh {mesh.data} x {mesh.model} over NCCL; {len(g)} G and {len(d)} D trained "
+        f"tensors after step {DDP_STEPS}, {len(differ)} differ from the run without a "
+        f"group; losses equal: {losses_equal}; launches by role {roles}")
+    want_roles = {role: {k: n * DDP_STEPS for k, n in c.items()}
+                  for role, c in CLI_LAUNCHES.items()}
+    if differ or not losses_equal or set(g) != set(ref["g"]):
+        raise AssertionError(f"world 1 over NCCL is not the run without a group: "
+                             f"{differ[:5]}, losses {[r['step_loss'] for r in rows]}")
+    if roles != want_roles:
+        raise AssertionError(f"world-1 trainer launched {roles}, expected {want_roles}")
+    return shapes
+
+
+def _ddp_rank(torch, rank, argv):
+    """22(b) in one rank (or in this process, without a group): the
+    trainer on this rank's rows for one step. Returns (its prompts, the
+    metrics, G's trained tensors before and after, the peak GiB, the
+    step's wall seconds, (data groups, model axis, data index), G's
+    all-reduced gradients before the clip), on the host."""
+    from comat_tpu_torch.training.arguments import parse_args
+    from comat_tpu_torch.training.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(parse_args(argv))
+    before = {n: p.detach().float().cpu().numpy() for n, p in trainer.state.trainable.items()}
+    grads = {}
+    record_grads(trainer.state.optimizer, grads)
+    prompts = next(iter(trainer.dataset.epoch(0)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = trainer.train_one(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = {n: p.detach().float().cpu().numpy() for n, p in trainer.state.trainable.items()}
+    mesh = trainer.mesh
+    where = (mesh.data, mesh.model, mesh.data_index) if mesh is not None else (1, 1, 0)
+    return (prompts, metrics, before, after, torch.cuda.max_memory_allocated() / 2 ** 30,
+            wall, where, grads)
+
+
+def phase_ddp_world2(torch, cli_argv, batch):
+    """22(b): two processes on this one card over Gloo, each the trainer
+    at --train_batch_size batch // 2 for one step, against one process at
+    `batch` from the same seed, in this process. Both on sd15.sh's flags
+    (phase 9's argv) with the CenterPrior segmenter: Grounded-SAM's masks
+    are no continuous function of the image (its top-900 query selection
+    swaps near ties), so two runs whose images differ by bf16 roundoff
+    segment differently."""
+    import numpy as np
+
+    work = os.path.join(REPO, "build", "chip_smoke", "ddp_world2")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    common = list(cli_argv) + ["--seg_model", "center_prior", "--max_train_steps", "1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = _ddp_rank(torch, 0, common + ["--output_dir", os.path.join(work, "w1"),
+                                        "--train_batch_size", str(batch)])
+    log(f"  one process at batch {batch}: loss {ref[1]['step_loss']!r}, s_step "
+        f"{ref[1]['s_step']:.3f} s, wall {ref[5]:.3f} s, peak {ref[4]:.1f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = _spawn(_child, 2, _ddp_rank, common + ["--output_dir", os.path.join(work, "w2"),
+                                                 "--train_batch_size", str(batch // 2)])
+    log(f"  two ranks over Gloo on one card in {time.perf_counter() - t0:.1f} s "
+        f"(spawn, build, one step)")
+    first = ref[0]
+    seen = out[0][0] + out[1][0]
+    for rank, (prompts, m, _, _, peak, wall, where, _) in enumerate(out):
+        log(f"  rank {rank} (mesh {where[0]} x {where[1]}, data index {where[2]}): prompts "
+            f"{prompts}; loss {m['step_loss']!r}, s_step {m['s_step']:.3f} s, s_allreduce "
+            f"{m['s_allreduce']:.4f} s for {m['allreduce_bytes'] / 1e6:.1f} MB, wall "
+            f"{wall:.3f} s, peak {peak:.1f} GiB (two processes sharing one card: not a "
+            f"scaling figure)")
+    loss, want = out[0][1]["step_loss"], ref[1]["step_loss"]
+    rel = abs(loss - want) / abs(want)
+    before, after0, after1 = out[0][2], out[0][3], out[1][3]
+    grads0, grads1 = out[0][7], out[1][7]
+    same = all(np.array_equal(after0[n], after1[n]) for n in after0) and all(
+        np.array_equal(grads0[n], grads1[n]) for n in grads0)
+
+    def worst(pairs):
+        """The smallest cos and the largest norm gap over the leaves."""
+        low, gap = (1.0, ""), (0.0, "")
+        for n, (a, b) in pairs.items():
+            a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+            na, nb = np.linalg.norm(a), np.linalg.norm(b)
+            low = min(low, (float(a @ b / (na * nb)) if na and nb else float(na == nb), n))
+            gap = max(gap, (abs(na - nb) / nb if nb else float(na > 0), n))
+        return low, gap
+
+    g_cos, g_gap = worst({n: (g, ref[7][n]) for n, g in grads0.items()})
+    u_cos, u_gap = worst({n: (a - before[n], ref[3][n] - before[n]) for n, a in after0.items()})
+    log(f"  global loss {loss!r} against one process at batch {batch} {want!r} (relative "
+        f"{rel:.3e}, gate {DDP_LOSS_REL}); rows {seen} (one process: {first}); the ranks' "
+        f"gradients and tensors equal: {same}; gradient of each of {len(grads0)} LoRA "
+        f"leaves (all-reduced, before the clip): worst cos {g_cos[0]:.6f} ({g_cos[1]}), "
+        f"worst norm gap {g_gap[0]:.4%} ({g_gap[1]}); update (AdamW's first step, lr "
+        f"sign(g) where |g| >> eps: not gated): worst cos {u_cos[0]:.6f} ({u_cos[1]}), "
+        f"worst norm gap {u_gap[0]:.4%}")
+    if (rel > DDP_LOSS_REL or seen != first or not same or set(grads0) != set(ref[7])
+            or g_cos[0] < DDP_COS or g_gap[0] > DDP_NORM_REL):
+        raise AssertionError("world 2 does not train as world 1 at twice the batch")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def _tp_rank(torch, rank):
+    """23 in one rank: SD1.5's UNet at full width (fp32, TF32 off, LoRA 128
+    with nonzero B) and its copy sharded by `apply_tp` over the two ranks:
+    one guided call's eps (batch 2 at 512^2) and the LoRA gradients of a
+    fixed weighting of it, on both; kernel A's launches of each by heads
+    (its fp32 code: in bf16 the two differ by bf16 roundoff, which the
+    narrower GEMMs place elsewhere)."""
+    import copy
+
+    import numpy as np
+
+    from comat_tpu_torch.config import UNetConfig
+    from comat_tpu_torch.models.unet import UNet2DConditionModel
+    from comat_tpu_torch.ops import flash_attention as fa
+    from comat_tpu_torch.parallel import mesh as pmesh
+    from comat_tpu_torch.parallel import tp as ptp
+    from comat_tpu_torch.weights import init_weights_
+
+    mesh = pmesh.make_mesh(data=1, model=2)
+    cfg = dataclasses.replace(UNetConfig.sd15(), dtype=torch.float32)
+    unet = UNet2DConditionModel(cfg, lora_rank=128, device="cuda")
+    with torch.no_grad():
+        init_weights_(unet, torch.Generator(device="cuda").manual_seed(SEED + 23))
+    _nonzero_lora_b(torch, unet, torch.Generator().manual_seed(SEED + 24))
+    ref = copy.deepcopy(unet)
+    g = torch.Generator().manual_seed(SEED + 25)
+    x = torch.randn((2, 64, 64, 4), generator=g).cuda()
+    ctx = torch.randn((2, 77, 768), generator=g).cuda()
+    w = torch.randn((2, 64, 64, 4), generator=g).cuda()
+    t = torch.tensor([500, 500], device="cuda")
+
+    def run(model):
+        fa.KERNEL.reset_counts()
+        eps = model(x, t, ctx)
+        lora = {n: p for n, p in model.named_parameters() if "lora_" in n}
+        grads = torch.autograd.grad((eps.float() * w).sum(), list(lora.values()))
+        torch.cuda.synchronize()
+        heads = {}
+        for key, n in fa.KERNEL.launches_by_shape.items():
+            heads[key[0] // 2] = heads.get(key[0] // 2, 0) + n
+        return eps.detach().float(), dict(zip(lora, grads)), heads
+
+    e0, g0, h0 = run(ref)
+    del ref
+    plan = ptp.apply_tp(unet, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e1, g1, h1 = run(unet)
+    sharded_s = time.perf_counter() - t0
+
+    def cmp(a, b):
+        a, b = a.double().ravel(), b.double().ravel()
+        cos = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+        return cos, float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    leaves = {n: cmp(ptp.gather_shard(g1[n], plan.get(n), mesh), g0[n]) for n in g0}
+    return {"eps": cmp(e1, e0), "leaves": leaves, "heads_ref": h0, "heads_tp": h1,
+            "sharded": len(plan), "seconds": sharded_s,
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "finite": bool(np.isfinite(e1.cpu().numpy()).all())}
+
+
+def phase_tp(torch):
+    """23: `parallel.tp.apply_tp` at M = 2 over two ranks on this card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = _spawn(_child, 2, _tp_rank)
+    log(f"  two ranks over Gloo on one card in {time.perf_counter() - t0:.1f} s")
+    for rank, r in enumerate(out):
+        worst_cos = min((c, n) for n, (c, _) in r["leaves"].items())
+        worst_rel = max((e, n) for n, (_, e) in r["leaves"].items())
+        log(f"  rank {rank}: {r['sharded']} tensors sharded; eps cos {r['eps'][0]:.7f}, "
+            f"max rel {r['eps'][1]:.3e}; {len(r['leaves'])} LoRA gradients: worst cos "
+            f"{worst_cos[0]:.7f} ({worst_cos[1]}), worst max rel {worst_rel[0]:.3e} "
+            f"({worst_rel[1]}); kernel A launches by heads: unsharded {r['heads_ref']}, "
+            f"sharded {r['heads_tp']}; sharded call + backward {r['seconds']:.3f} s "
+            f"(two processes sharing one card), peak {r['peak']:.1f} GiB")
+        ok = (r["finite"] and r["eps"][0] >= TP_COS and r["eps"][1] <= TP_REL
+              and worst_cos[0] >= TP_COS and worst_rel[0] <= TP_REL
+              and set(r["heads_ref"]) == {8} and set(r["heads_tp"]) == {4}
+              and r["heads_ref"][8] == r["heads_tp"][4] > 0)
+        if not ok:
+            raise AssertionError(f"tensor parallelism, rank {rank}: {r['eps']}, "
+                                 f"{worst_cos}, {worst_rel}, {r['heads_ref']}, "
+                                 f"{r['heads_tp']}")
+
+
 def main() -> int:
     import torch
 
@@ -3347,6 +3704,7 @@ def main() -> int:
         f"the trainer ({SNAPSHOT_STEPS} steps) from them; SDXL's fp16 variant files")
     snap_gen_shapes, snap_cli_shapes = phase_snapshots(torch, fa, cv, kernels, gen, cli)
     cli_index, cli_argv, cli_step1 = cli["index"], cli["argv"], cli["step1"]["loss"]
+    cli_first = cli["step1"]
     del gen, cli
 
     header(f"[14/{N_PHASES}] latent store: tools.gan_gt_generate on {GAN_GT_PROMPTS} prompts at 512^2, "
@@ -3390,6 +3748,17 @@ def main() -> int:
 
     header(f"[21/{N_PHASES}] stability: tools/stability_run.py, {STABILITY_STEPS} steps")
     stability_shapes = phase_stability(torch, kernels)
+
+    header(f"[22/{N_PHASES}] data parallelism: (a) sd15.sh's flags, {DDP_STEPS} steps under a "
+           f"world-1 NCCL group against phase 9; (b) two ranks on this card over Gloo at "
+           f"batch {TRAIN_BATCH // 2} each against one process at batch {TRAIN_BATCH}")
+    ddp_shapes = phase_ddp_world1(torch, fa, cv, kernels, cli_argv, cli_first["steps"])
+    phase_ddp_world2(torch, cli_argv, TRAIN_BATCH)
+    del cli_first
+
+    header(f"[23/{N_PHASES}] tensor parallelism: SD1.5's UNet at full width (fp32) sharded "
+           "over two ranks on this card (Gloo), one guided call at 512^2 and its LoRA backward")
+    phase_tp(torch)
     ends = [t for _, t, _ in starts[1:]] + [time.perf_counter()]
     log("  seconds a phase (GiB allocated at its start): " + ", ".join(
         f"{n} {end - t:.1f} ({held:.2f})" for (n, t, held), end in zip(starts, ends)))
@@ -3412,7 +3781,8 @@ def main() -> int:
              "accum_trainer_cli": accum_shapes, "evaluate": eval_shapes,
              "surfaces_trainer_cli": surf_shapes, "sdxl_surfaces_trainer": sxs_shapes,
              "int8_pass1_sd15": int8_shapes["sd15"], "int8_pass1_sdxl": int8_shapes["sdxl"],
-             "int8_trainer_cli": int8_cli_shapes, "stability": stability_shapes}
+             "int8_trainer_cli": int8_cli_shapes, "stability": stability_shapes,
+             "ddp_trainer_cli": ddp_shapes}
     if sxs_batch != SDXL_BATCH:
         log(f"  phase 17 ran at batch {sxs_batch}, whose shapes phase 2 does not time: "
             "its launches are left out of the kernels line")

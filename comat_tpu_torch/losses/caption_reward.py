@@ -87,9 +87,12 @@ def build_caption_batch(
 
 def blip_caption_reward(
     blip, image01: torch.Tensor, input_ids, attention_mask, labels,
+    token_count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """reward = -caption_loss, a scalar, differentiable with respect to
-    `image01`; the captioner's weights are frozen."""
+    `image01`; the captioner's weights are frozen. `token_count`: the
+    count of scored tokens to divide by, the whole batch's where these
+    rows are one rank's share of it (else these rows' own)."""
     device = image01.device
 
     def as_ids(a):
@@ -98,7 +101,7 @@ def blip_caption_reward(
 
     pixel_values = blip_preprocess(image01, blip.cfg.image_size)
     loss = blip.caption_loss(pixel_values, as_ids(input_ids),
-                             as_ids(attention_mask), as_ids(labels))
+                             as_ids(attention_mask), as_ids(labels), token_count)
     return -loss
 
 

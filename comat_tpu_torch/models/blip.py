@@ -314,12 +314,16 @@ class BLIPCaptioner(nn.Module):
         input_ids: torch.Tensor,       # (B, S)
         attention_mask: torch.Tensor,  # (B, S) 1/0
         labels: torch.Tensor,          # (B, S), IGNORE_INDEX where masked
+        token_count: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Shifted cross-entropy, label smoothing from the config, mean
-        over the tokens that are not ignored."""
+        over the tokens that are not ignored (summed over them and divided
+        by `token_count` where given)."""
         per_tok, valid = self.caption_token_losses(pixel_values, input_ids,
                                                    attention_mask, labels)
-        return per_tok.sum() / valid.sum().clamp_min(1)
+        if token_count is None:
+            token_count = valid.sum().clamp_min(1)
+        return per_tok.sum() / token_count
 
     def forward(self, pixel_values, input_ids, attention_mask, labels):
         return self.caption_loss(pixel_values, input_ids, attention_mask, labels)

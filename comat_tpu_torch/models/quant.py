@@ -97,7 +97,12 @@ def weight_quant(weight: torch.Tensor) -> tuple:
 def quantize_unet(unet: nn.Module) -> Dict[str, W8A8Weight]:
     """The int8 weight set of a UNet as its weights stand: {module name:
     W8A8Weight} for every quantizable linear and conv layer (JAX's
-    `quantize_unet_tree`)."""
+    `quantize_unet_tree`). A UNet sharded by `parallel.tp` raises: a
+    row-parallel layer's per-token absmax would span its ranks."""
+    if getattr(unet, "tp_sharded", None):
+        raise NotImplementedError("W8A8 (--pass1_int8) under tensor parallelism: not "
+                                  "ported yet, ROADMAP Queue 1: int8 pass 1 under "
+                                  "parallel/tp.py")
     out = {}
     for name, module in unet.named_modules():
         if not (isinstance(module, (nn.Linear, nn.Conv2d)) and quantizable(name)):

@@ -1,13 +1,15 @@
 #!/bin/bash
-# SD1.5 CoMat recipe on one NVIDIA card with the PyTorch port: the flags
-# of the repo's scripts/sd15.sh (the reference's training run, Grounded-SAM
-# masks included), passed to python -m comat_tpu_torch.train. Until the
+# SD1.5 CoMat recipe on NVIDIA cards with the PyTorch port: the flags of
+# the repo's scripts/sd15.sh (the reference's training run, Grounded-SAM
+# masks included), passed to comat_tpu_torch.train under torchrun, one
+# process a card: NPROC_PER_NODE=8 is the reference's node8.yaml (global
+# batch 8 x 4), the default 1 one card. Until the
 # SD1.5 and BLIP snapshots can be loaded, it adds --allow_smoke (seeded
 # weights, hash tokenizers). Grounded-SAM's weights load with
 # --fastsam_checkpoint FastSAM-x.pt --gdino_checkpoint
 # groundingdino_swint_ogc.pth --gdino_tokenizer_vocab vocab.txt, else they
 # are seeded. Extra flags follow, e.g. --max_train_steps 3.
-python -m comat_tpu_torch.train \
+torchrun --standalone --nproc_per_node "${NPROC_PER_NODE:-1}" -m comat_tpu_torch.train \
   --pretrain_model_name sd_1_5_attrcon \
   --pretrain_model "${PRETRAIN_MODEL:-runwayml/stable-diffusion-v1-5}" \
   --training_prompts "${TRAINING_PROMPTS:-collected_data/abc5k.txt}" \

@@ -1,13 +1,14 @@
 #!/bin/bash
-# SDXL CoMat recipe on one NVIDIA card with the PyTorch port: the flags
-# of the repo's scripts/sdxl.sh (the reference's SDXL run: the
-# 512-finetuned UNet through --sdxl_unet_path, an SD1.5-architecture
-# discriminator, Grounded-SAM masks), passed to python -m
-# comat_tpu_torch.train. Until the SDXL, SD1.5 and BLIP snapshots can be
+# SDXL CoMat recipe on NVIDIA cards with the PyTorch port: the flags of
+# the repo's scripts/sdxl.sh (the reference's SDXL run: the 512-finetuned
+# UNet through --sdxl_unet_path, an SD1.5-architecture discriminator,
+# Grounded-SAM masks), passed to comat_tpu_torch.train under torchrun, one
+# process a card (NPROC_PER_NODE, default 1; 8 is the reference's
+# node8.yaml). Until the SDXL, SD1.5 and BLIP snapshots can be
 # loaded, it adds --allow_smoke (seeded weights, hash tokenizers).
-# Batch 6 at 512^2 as in the reference (80 GB cards). Extra flags follow,
+# Batch 6 a card at 512^2 as in the reference (80 GB cards). Extra flags follow,
 # e.g. --max_train_steps 3.
-python -m comat_tpu_torch.train \
+torchrun --standalone --nproc_per_node "${NPROC_PER_NODE:-1}" -m comat_tpu_torch.train \
   --pretrain_model_name sdxl_attrcon_unet \
   --pretrain_model "${PRETRAIN_MODEL:-stabilityai/stable-diffusion-xl-base-1.0}" \
   --sdxl_unet_path "${SDXL_UNET_PATH:-}" \

@@ -2,12 +2,10 @@
 
 The port's own copy of comat_tpu/training/arguments.py (the ~65-flag
 contract that scripts/sd15.sh drives; the same flags, defaults and parse
-results), plus `--device` (default cuda). The one flag whose path the
-port does not have yet, `--mesh_model_axis` above 1 (tensor parallelism),
-raises `NotImplementedError` naming its ROADMAP Queue 1 item
-(`_check_ported`); the reference's CUDA-only flags are accepted as the JAX
-package accepts them. `launcher_argv` reads the
-flags of a launcher script such as scripts/sd15.sh.
+results), plus `--device` (default cuda). The reference's CUDA-only flags
+are accepted as the JAX package accepts them, `--local_rank` among them
+(unused: `torchrun` passes the rank in the environment). `launcher_argv`
+reads the flags of a launcher script such as scripts/sd15.sh.
 """
 
 from __future__ import annotations
@@ -17,29 +15,20 @@ import re
 import shlex
 from typing import List
 
-def _check_ported(args) -> None:
-    """Raise for a set flag whose path is not ported, naming its item."""
-    unported = [
-        ("--mesh_model_axis", args.mesh_model_axis > 1,
-         "ROADMAP Queue 1: opt-in extras (parallel/tp.py)"),
-    ]
-    for flag, is_set, item in unported:
-        if is_set:
-            raise NotImplementedError(f"{flag}: not ported yet, {item}")
-
 
 def launcher_argv(path: str) -> List[str]:
     """The flags a launcher script passes to its trainer with the
     script's own defaults: its one command (line continuations joined),
-    split as the shell splits it, without the interpreter and module and
-    without "$@", each ${NAME:-default} as its default (whatever NAME
-    the caller's environment holds)."""
+    split as the shell splits it, without the interpreter or `torchrun`
+    and its options, without the module or script and without "$@", each
+    ${NAME:-default} as its default (whatever NAME the caller's
+    environment holds)."""
     with open(path) as f:
         text = f.read().replace("\\\n", " ")
     line = next(ln for ln in text.splitlines()
-                if ln.strip().startswith(("python ", "python3 ")))
+                if ln.strip().startswith(("python ", "python3 ", "torchrun ")))
     words = shlex.split(line)
-    words = words[3:] if words[1] == "-m" else words[2:]
+    words = words[words.index("-m") + 2:] if "-m" in words else words[2:]
 
     def expand(w: str) -> str:
         return re.sub(r"\$\{(\w+):-([^}]*)\}", lambda m: m.group(2), w)
@@ -225,7 +214,6 @@ def parse_args(argv=None):
                    help="torch device; cuda raises without a card")
 
     args = p.parse_args(argv)
-    _check_ported(args)
 
     # Derived (reference arguments.py:393-396)
     args.do_classifier_free_guidance = args.cfg_scale > 1.0

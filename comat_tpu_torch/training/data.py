@@ -44,8 +44,13 @@ class PromptDataset:
 
     The reference shuffles with `seed + process_index`
     (training_utils/dataset.py:39) and lets the DDP dataloader shard;
-    here each host shuffles with its own seed and strides by
-    process_count — same distribution contract, explicit.
+    here every process shuffles with the same seed, and step i's global
+    batch is the shuffled order's i-th block of batch_size x
+    process_count prompts, of which process k takes the k-th
+    batch_size rows. JAX's copy strides the order by process_count
+    instead: the same exact partition, but the port's keeps each global
+    batch, in order, what one process at the global batch size sees, so
+    that N processes train as one at N times the batch, step for step.
     """
 
     def __init__(
@@ -77,18 +82,21 @@ class PromptDataset:
         # an exact partition, same randomness.
         rng = random.Random(self.seed + epoch * 1000003)
         rng.shuffle(order)
-        shard = order[self.process_index :: self.process_count]
-        if len(shard) < self.batch_size:  # tiny corpora: tile to fill
-            reps = -(-self.batch_size // max(len(shard), 1))
-            shard = (shard * reps)[: self.batch_size]
-        for i in range(0, len(shard) - self.batch_size + 1, self.batch_size):
-            yield [self.prompts[j] for j in shard[i : i + self.batch_size]]
+        step = self.batch_size * self.process_count
+        if len(order) < step:  # tiny corpora: tile to fill
+            reps = -(-step // max(len(order), 1))
+            order = (order * reps)[:step]
+        lo = self.process_index * self.batch_size
+        for i in range(0, len(order) - step + 1, step):
+            yield [self.prompts[j] for j in order[i + lo : i + lo + self.batch_size]]
 
 
 class GanLatentStore:
     """jsonl-indexed latent store (reference: Gan_Dataset,
     training_utils/gan_dataset.py:40-66). Multiple entries per prompt
-    are allowed; sampling picks one at random (:59)."""
+    are allowed; sampling picks one at random (:59), from a
+    `random.Random(seed)` that is seed 0 in every process, as in JAX: each
+    process draws for its own prompts."""
 
     def __init__(self, index_path: str, root: Optional[str] = None, seed: int = 0):
         self.root = root or os.path.dirname(os.path.abspath(index_path))

@@ -12,7 +12,9 @@ tensorboard, its default) every scalar and the validation images also go
 to a TensorBoard log under `<output_dir>/<logging_dir>`, through
 `torch.utils.tensorboard`, as JAX writes them; where that writer cannot be
 made (no tensorboard package), one warning names the reason and
-metrics.jsonl is kept. One process, so no rank gating.
+metrics.jsonl is kept. Under a process group every log line carries its
+rank (JAX's `[proc N]`), and rank 0 alone writes log.txt, metrics.jsonl,
+the TensorBoard log and the images.
 """
 
 from __future__ import annotations
@@ -30,15 +32,20 @@ from comat_tpu_torch.tools.generate import write_png
 _FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
 
 
-def set_logger(output_dir: Optional[str] = None) -> logging.Logger:
-    logging.basicConfig(level=logging.INFO, format=_FORMAT)
+def set_logger(output_dir: Optional[str] = None, rank: Optional[int] = None
+               ) -> logging.Logger:
+    """The port's logger; with `rank` (under a process group) each line
+    carries it, and only rank 0 writes `<output_dir>/log.txt`."""
+    fmt = _FORMAT if rank is None else _FORMAT.replace(
+        "%(levelname)s", f"[rank {rank}] %(levelname)s")
+    logging.basicConfig(level=logging.INFO, format=fmt)
     logger = logging.getLogger("comat_tpu_torch")
-    if output_dir:
+    if output_dir and not rank:
         os.makedirs(output_dir, exist_ok=True)
         path = os.path.abspath(os.path.join(output_dir, "log.txt"))
         if not any(getattr(h, "baseFilename", None) == path for h in logger.handlers):
             fh = logging.FileHandler(path)
-            fh.setFormatter(logging.Formatter(_FORMAT))
+            fh.setFormatter(logging.Formatter(fmt))
             logger.addHandler(fh)
     return logger
 
@@ -46,9 +53,15 @@ def set_logger(output_dir: Optional[str] = None) -> logging.Logger:
 class MetricsWriter:
     """metrics.jsonl (appended, one record per step) and PNG images; with
     `logging_dir`, a TensorBoard log of the same scalars (tags the metric
-    names) and images."""
+    names) and images. With `main` False (a rank other than 0) it writes
+    nothing."""
 
-    def __init__(self, output_dir: str, logging_dir: Optional[str] = None):
+    def __init__(self, output_dir: str, logging_dir: Optional[str] = None,
+                 main: bool = True):
+        self.main = main
+        self.f = self.tb = None
+        if not main:
+            return
         os.makedirs(output_dir, exist_ok=True)
         self.f = open(os.path.join(output_dir, "metrics.jsonl"), "a")
         self.img_dir = os.path.join(output_dir, "validation_images")
@@ -65,6 +78,8 @@ class MetricsWriter:
                     tb_dir, type(e).__name__, e)
 
     def log(self, metrics: Dict[str, float], step: int) -> None:
+        if not self.main:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: float(v) for k, v in metrics.items()})
         self.f.write(json.dumps(rec) + "\n")
@@ -77,6 +92,8 @@ class MetricsWriter:
         """NHWC float [0, 1] images -> `<tag>_<step>_<i>.png` (the
         validation grids of training_script.py:485-489), and to the
         TensorBoard log."""
+        if not self.main:
+            return
         os.makedirs(self.img_dir, exist_ok=True)
         arr = np.clip(np.asarray(images, np.float32), 0, 1)
         if self.tb is not None:
@@ -85,7 +102,8 @@ class MetricsWriter:
             write_png(os.path.join(self.img_dir, f"{tag}_{step}_{i}.png"), im)
 
     def close(self) -> None:
-        self.f.close()
+        if self.f is not None:
+            self.f.close()
         if self.tb is not None:
             self.tb.close()
 

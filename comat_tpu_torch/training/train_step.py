@@ -51,10 +51,22 @@ import numpy as np
 import torch
 
 from comat_tpu_torch.diffusion.schedulers import inference_timesteps
-from comat_tpu_torch.losses.caption_reward import blip_caption_reward, crop_jitter
+from comat_tpu_torch.losses.caption_reward import (
+    IGNORE_INDEX,
+    blip_caption_reward,
+    crop_jitter,
+)
 from comat_tpu_torch.losses.gan import Discriminator, gan_d_loss, gan_g_loss
 from comat_tpu_torch.models.lora import is_lora_path
 from comat_tpu_torch.models.pipeline import DiffusionPipeline
+from comat_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_grads,
+    gather_metrics,
+    grad_norm,
+    local_rows,
+    sum_over_data,
+)
 from comat_tpu_torch.training.optim8bit import AdamW8bit
 
 
@@ -238,12 +250,20 @@ class ClippedAdamW:
             self.masters[name].grad = None
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self, reduce: Optional[Callable[[List[torch.Tensor]], None]] = None,
+             norm: Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]] = None,
+             ) -> torch.Tensor:
         """Clip and apply the gradients in `.grad` (under accumulation,
         fold them into the mean and apply that on every N-th call); returns
         the global norm of the gradients in `.grad` (a 0-dim fp32 tensor),
         before any clip. The working copies' own `.grad` are left as the
-        backward wrote them."""
+        backward wrote them.
+
+        `reduce(grads)`, where given, sums the fp32 gradients in place over
+        the data-parallel ranks before anything reads them
+        (`parallel.mesh.all_reduce_grads`); `norm(grads by name)` replaces
+        the local global norm (`parallel.mesh.grad_norm`, which counts a
+        tensor-parallel shard's squares across its model group)."""
         for name, p in self.params.items():
             master = self.masters[name]
             if master is not p and p.grad is not None:
@@ -251,8 +271,13 @@ class ClippedAdamW:
                 master.grad = g if master.grad is None else master.grad + g
             if master.grad is None:
                 master.grad = torch.zeros_like(master)
+        if reduce is not None:
+            reduce([m.grad for m in self.masters.values()])
+        if norm is None:
+            def norm(named):
+                return torch.stack([g.square().sum() for g in named.values()]).sum().sqrt()
         grads = [m.grad for m in self.masters.values()]
-        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        norm_before = norm({n: m.grad for n, m in self.masters.items()})
         if self.every > 1:
             k = self.mini_step
             for name, m in self.masters.items():
@@ -262,15 +287,15 @@ class ClippedAdamW:
                 acc.add_((m.grad - acc) / (k + 1))
             if k < self.every - 1:
                 self.mini_step += 1
-                return norm
+                return norm_before
             self.mini_step = 0
             for name, m in self.masters.items():
                 m.grad = self.acc[name].clone()
                 self.acc[name].zero_()
             grads = [m.grad for m in self.masters.values()]
-            clip_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+            clip_norm = norm({n: m.grad for n, m in self.masters.items()})
         else:
-            clip_norm = norm
+            clip_norm = norm_before
         if float(clip_norm) >= self.max_norm:
             for g in grads:
                 g.div_(clip_norm).mul_(self.max_norm)
@@ -283,7 +308,7 @@ class ClippedAdamW:
         for name, p in self.params.items():
             if self.masters[name] is not p:
                 p.copy_(self.masters[name])
-        return norm
+        return norm_before
 
     def state_dict(self) -> Dict[str, object]:
         """The update count, the fp32 masters of bf16 tensors and AdamW's
@@ -459,6 +484,14 @@ def sample_draws(cfg: TrainConfig, batch: int, latent_size: int,
     )
 
 
+def local_draws(draws: StepDraws, mesh: Mesh) -> StepDraws:
+    """This data index's rows of a global batch's draws (the latents and
+    the noise table); the schedule start, the crop and the segment draws
+    are the whole batch's."""
+    return draws._replace(latents0=local_rows(draws.latents0, mesh),
+                          step_noise=local_rows(draws.step_noise, mesh, dim=1))
+
+
 class PhaseClock:
     """Marks on the device's timeline (CUDA events; host clock on the
     CPU), read after the step has synchronised.
@@ -542,18 +575,21 @@ SEGMENTS: Dict[str, Tuple[str, Optional[str]]] = {
     "decode_bwd": ("decode_bwd", None),
     "capture_bwd": ("capture_bwd", None),
     "replay_bwd": ("replay_bwd", None),
-    "optimizer": ("backward", "optimizer"),
+    "allreduce": ("backward", "allreduced"),
+    "optimizer": ("allreduced", "optimizer"),
     "d_fwd": ("optimizer", "d_forward"),
     "d_bwd": ("d_forward", "d_backward"),
-    "d_opt": ("d_backward", "end"),
+    "d_allreduce": ("d_backward", "d_allreduced"),
+    "d_opt": ("d_allreduced", "end"),
 }
 
 # The seconds a train step reports, as sums of segments. s_pass1 is pass
 # 1's wherever it runs: in the step, or in the split step's presample;
 # s_presample is the rest of the presample (its no-grad VAE decode);
 # s_segment the segmentation, device forwards and host decode, and
-# s_segment_host its host part. s_capture and s_segment_host lie inside
-# other phases; the others are disjoint.
+# s_segment_host its host part; s_allreduce the gradient all-reduces of G
+# and D over the data-parallel ranks (with a mesh; else 0). s_capture and
+# s_segment_host lie inside other phases; the others are disjoint.
 PHASES = {
     "s_pass1": ("pass1", "presample_pass1"),
     "s_presample": ("presample_decode",),
@@ -565,6 +601,7 @@ PHASES = {
     "s_reward": ("reward",),
     "s_gan_g": ("gan_fwd", "gan_bwd"),
     "s_grounding": ("grounding_fwd", "grounding_bwd"),
+    "s_allreduce": ("allreduce", "d_allreduce"),
     "s_optimizer": ("optimizer",),
     "s_d_update": ("d_fwd", "d_bwd", "d_opt"),
 }
@@ -572,7 +609,8 @@ PHASES = {
 
 def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
                  extra_losses: Optional[Callable] = None,
-                 disc: Optional[Discriminator] = None):
+                 disc: Optional[Discriminator] = None,
+                 mesh: Optional[Mesh] = None):
     """The differentiated quantity of a step.
 
     loss_fn(batch, draws, clock=None) -> (loss, (metrics, latents)).
@@ -592,18 +630,43 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
 
     `cfg.gradient_checkpointing` runs pass 1 unfused, as JAX does: the
     pipeline must then hold no LoRA-free twin (`fuse_pass1=False`).
-    `cfg.pass1_int8` runs pass 1 in W8A8 on that UNet."""
+    `cfg.pass1_int8` runs pass 1 in W8A8 on that UNet.
+
+    With `mesh` the batch and `draws` are this data index's rows of the
+    global batch, and the loss is this rank's share of the global loss, so
+    that the shares and their gradients sum over the data group to JAX's
+    at the global batch: the caption loss is the local token losses' sum
+    over the global count of scored tokens (all-reduced first), every
+    other term (the G loss, the grounding losses) the local mean over the
+    number of data groups (equal rows per rank). The metrics are the
+    shares too (`make_train_step` sums them), but for `reward_norm`, the
+    norm of the whole batch's image gradient."""
     if (cfg.gradient_checkpointing and pipeline.cfg.lora_rank > 0
             and pipeline.unet_inf is not None):
         raise ValueError("gradient_checkpointing runs pass 1 unfused: build the "
                          "pipeline with DiffusionPipeline(..., fuse_pass1=False)")
     t_final = int(inference_timesteps(cfg.total_step)[-1])
     null_ctx_for_d = _make_null_ctx_for_d(pipeline, disc)
+    share = 1.0 / mesh.data if mesh is not None else None
 
-    def caption_loss_of_image(img, batch):
+    def scored_tokens(batch) -> Optional[torch.Tensor]:
+        """The global batch's count of scored caption tokens (with a mesh)."""
+        if mesh is None:
+            return None
+        labels = torch.as_tensor(np.asarray(batch["caption_labels"]))
+        count = (labels[:, 1:] != IGNORE_INDEX).sum().to(pipeline.device)
+        return sum_over_data(count, mesh).clamp_min(1)
+
+    def caption_loss_of_image(img, batch, count):
         r = blip_caption_reward(blip, img, batch["caption_ids"],
-                                batch["caption_mask"], batch["caption_labels"])
+                                batch["caption_mask"], batch["caption_labels"],
+                                token_count=count)
         return -(cfg.reward_weight * r)
+
+    def image_grad_norm(img_grad: torch.Tensor) -> torch.Tensor:
+        if mesh is None or mesh.data == 1:
+            return img_grad.float().norm()
+        return sum_over_data(img_grad.float().square().sum(), mesh).sqrt()
 
     def loss_fn(batch, draws: StepDraws, clock: Optional[PhaseClock] = None):
         mark = clock.mark if clock is not None else (lambda name: None)
@@ -640,11 +703,12 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
         offset_range = cfg.resolution // 224
         cropped = crop_jitter(image, *draws.crop, cfg.resolution - offset_range)
         leaf = cropped.detach().requires_grad_()
+        count = scored_tokens(batch)
         with torch.enable_grad():
-            closs = caption_loss_of_image(leaf, batch)
+            closs = caption_loss_of_image(leaf, batch, count)
             (img_grad,) = torch.autograd.grad(closs, leaf)
         closs = closs.detach()
-        reward_norm = img_grad.float().norm()
+        reward_norm = image_grad_norm(img_grad)
         factor = (1e4 / reward_norm.clamp_min(1e-12)) if cfg.norm_grad else 1.0
         loss = closs + ((img_grad * factor).detach()
                         * (cropped - cropped.detach())).sum()
@@ -662,6 +726,8 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             lat_d = result.latents.view_as(result.latents)
             hook(lat_d, "gan_bwd>")
             g_loss = gan_g_loss(disc, lat_d, t_final, null_ctx, null_added)
+            if share is not None:
+                g_loss = g_loss * share
             hook(g_loss, "gan_bwd<")
             loss = loss + cfg.gan_loss_weight * g_loss
             metrics["G_loss"] = g_loss.detach()
@@ -683,6 +749,9 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
                     m.register_hook(last_map)
                 result = result._replace(captured=views)
             add, extra_metrics = extra_losses(batch, image, result, draws)
+            if share is not None:
+                add = add * share
+                extra_metrics = {k: v * share for k, v in extra_metrics.items()}
             hook(add, "grounding_bwd<")
             loss = loss + add
             metrics.update(extra_metrics)
@@ -696,7 +765,8 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
 def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
                     extra_losses: Optional[Callable] = None,
                     disc: Optional[Discriminator] = None,
-                    d_optimizer: Optional[ClippedAdamW] = None):
+                    d_optimizer: Optional[ClippedAdamW] = None,
+                    mesh: Optional[Mesh] = None):
     """train_step(state, batch, draws=None, generator=None, clock=None) ->
     (new state, metrics).
 
@@ -724,24 +794,56 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     A batch holding `eps_table` and `latents_traj` (a presample's) skips
     pass 1 and replays from them. `clock`: a PhaseClock to mark the
     step on (one is made without it), for a caller that reads more of
-    it, e.g. launch counts by segment through its probe."""
-    loss_fn = make_loss_fn(pipeline, blip, cfg, extra_losses, disc)
+    it, e.g. launch counts by segment through its probe.
+
+    `mesh` (parallel.mesh): data parallelism over its data group, with the
+    batch this data index's rows of the global batch (the model group's
+    ranks hold the same rows). `draws`, given or drawn, are the global
+    batch's, the same on every rank, and the step keeps its rows
+    (`local_draws`), so every rank's generator stays in step with the
+    others'. Each loss is this rank's share of the global one
+    (`make_loss_fn`); after the backward the gradients of G, and after
+    D's backward D's, are summed over the data group in flat fp32
+    buckets (`all_reduce_grads`), so that the clip, the accumulation and
+    AdamW see the global gradient, as optax does in JAX. Under
+    `parallel.tp` the clip's norm counts each shard across its model
+    group. The metrics are the global batch's, and `allreduce_bytes`
+    the bytes summed; `s_allreduce` is the all-reduces' seconds."""
+    loss_fn = make_loss_fn(pipeline, blip, cfg, extra_losses, disc, mesh)
     t_final = int(inference_timesteps(cfg.total_step)[-1])
     null_ctx_for_d = _make_null_ctx_for_d(pipeline, disc)
+    sharded = {f"unet.{n}" for n in getattr(pipeline.unet, "tp_sharded", ())}
+
+    def norm(grads):
+        return grad_norm(grads, mesh, sharded)
 
     def train_step(state: TrainState, batch, draws: Optional[StepDraws] = None,
                    generator: Optional[torch.Generator] = None,
                    clock: Optional[PhaseClock] = None):
         if draws is None:
-            draws = sample_draws(cfg, len(batch["input_ids"]),
-                                 pipeline.cfg.latent_size, generator,
+            n = len(batch["input_ids"]) * (mesh.data if mesh is not None else 1)
+            draws = sample_draws(cfg, n, pipeline.cfg.latent_size, generator,
                                  pipeline.device)
+        if mesh is not None:
+            draws = local_draws(draws, mesh)
         clock = PhaseClock(pipeline.device) if clock is None else clock
+        reduced = [0]
+
+        def reduce_then_mark(name):
+            def reduce(grads):
+                reduced[0] += all_reduce_grads(grads, mesh)
+                clock.mark(name)
+            return reduce
+
         state.optimizer.zero_grad()
         loss, (metrics, gen_latents) = loss_fn(batch, draws, clock)
         loss.backward()
         clock.mark("backward")
-        grad_norm = state.optimizer.step()
+        if mesh is None:
+            clock.mark("allreduced")
+            g_norm = state.optimizer.step()
+        else:
+            g_norm = state.optimizer.step(reduce_then_mark("allreduced"), norm)
         clock.mark("optimizer")
         if disc is not None and d_optimizer is not None:
             null_ctx, null_added = null_ctx_for_d(batch)
@@ -750,17 +852,29 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
                 gt = torch.from_numpy(np.asarray(gt))
             d_optimizer.zero_grad()
             d_loss = gan_d_loss(disc, gen_latents, gt, t_final, null_ctx, null_added)
+            if mesh is not None:
+                d_loss = d_loss * (1.0 / mesh.data)
             clock.mark("d_forward")
             d_loss.backward()
             clock.mark("d_backward")
-            d_optimizer.step()
+            if mesh is None:
+                clock.mark("d_allreduced")
+                d_optimizer.step()
+            else:
+                d_optimizer.step(reduce_then_mark("d_allreduced"))
             metrics["D_loss"] = d_loss.detach()
         else:
             clock.mark("d_forward")
             clock.mark("d_backward")
         clock.mark("end")
+        if mesh is not None:
+            norm_metric = metrics.pop("reward_norm")
+            metrics = gather_metrics(metrics, mesh)
+            metrics["reward_norm"] = norm_metric
         out = {k: float(v) for k, v in metrics.items()}
-        out["grad_norm"] = float(grad_norm)
+        out["grad_norm"] = float(g_norm)
+        if mesh is not None:
+            out["allreduce_bytes"] = float(reduced[0])
         seg = {name: clock.seconds(*marks) for name, marks in SEGMENTS.items()}
         for name, parts in PHASES.items():
             out[name] = sum(seg[p] for p in parts)

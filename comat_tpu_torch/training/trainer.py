@@ -1,11 +1,28 @@
-"""Trainer: the CoMat recipe end to end on one device.
+"""Trainer: the CoMat recipe end to end, on one card or one process a card.
 
 The port's counterpart of comat_tpu/training/trainer.py (reference:
-training_script.py's Trainer), single card. Construction follows the
-reference's order: logger -> smoke gates -> pipeline -> caption model ->
-train state -> discriminator -> data -> resume -> attribute
-concentration. `train()` runs the loop: validation and a checkpoint at
-step 0, one `make_train_step` step per batch with its draws from one
+training_script.py's Trainer). Construction follows the reference's
+order: logger -> smoke gates -> pipeline -> caption model -> train state
+-> discriminator -> data -> resume -> attribute concentration.
+
+Under a process group (`torchrun`, see `parallel.mesh.init_distributed`)
+the ranks form a (world / --mesh_model_axis, --mesh_model_axis) mesh as
+JAX's trainer does: the device is cuda:LOCAL_RANK, --train_batch_size is
+per card, the prompts are split by data index (the ranks of one model
+group see the same rows: --mesh_model_axis M makes M replicas of each
+data shard's computation, as in JAX, whose trainer never applies
+`parallel.tp`), and the step sums its loss shares and gradients over the
+data groups (`make_train_step(mesh=)`). Rank 0's trained tensors are
+broadcast at start. With Grounded-SAM the first rank of each model group
+segments its rows and broadcasts the masks to its group. Rank 0 alone
+writes log.txt, metrics.jsonl, the TensorBoard log, the checkpoints
+(every rank's latent-store state gathered into them), the LoRA export and
+the validation images, and a barrier follows each checkpoint; every rank
+restores on resume. A stop signal on any rank stops every rank after the
+same step.
+
+`train()` runs the loop: validation and a checkpoint at step 0, one
+`make_train_step` step per batch with its draws from one
 `torch.Generator` seeded by --seed, metrics one step late, checkpoints
 and validation every --validation_steps and at the end, and a checkpoint
 before exiting on SIGTERM/SIGINT. Under --gradient_accumulation_steps N
@@ -89,6 +106,7 @@ from comat_tpu_torch.text.tokenizer import (
     HashTokenizer,
     load_clip_tokenizer,
 )
+from comat_tpu_torch.parallel import mesh as mesh_lib
 from comat_tpu_torch.training import checkpoints as ckpt_lib
 from comat_tpu_torch.training.data import (
     GanLatentStore,
@@ -103,6 +121,7 @@ from comat_tpu_torch.training.train_step import (
     TrainConfig,
     init_disc_state,
     init_train_state,
+    local_draws,
     make_presample,
     make_train_step,
     sample_draws,
@@ -159,8 +178,19 @@ class Trainer:
         self.args = args
         self.probe = probe
         self.segment_counts: Dict[str, Dict[str, int]] = {}
-        self.device = resolve_device(args.device)
-        self.logger = set_logger(args.output_dir)
+        # the mesh of the process group, before any weights: every rank
+        # makes its subgroups in the same order
+        self.mesh = None
+        device = args.device
+        if torch.distributed.is_initialized() or args.mesh_model_axis > 1:
+            self.mesh = mesh_lib.make_mesh(model=args.mesh_model_axis)
+            if device == "cuda":
+                device = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+        self.rank = self.mesh.rank if self.mesh is not None else 0
+        self.data_groups = self.mesh.data if self.mesh is not None else 1
+        self.device = resolve_device(device)
+        self.logger = set_logger(args.output_dir,
+                                 self.rank if self.mesh is not None else None)
         tiny = bool(args.tiny_models)
         self.logger.info("building pipeline %s on %s", args.pretrain_model_name,
                          self.device)
@@ -234,7 +264,7 @@ class Trainer:
             # (reference training_script.py:287-288)
             n = len(load_prompts(args.training_prompts, args.max_train_samples))
             args.max_train_steps = args.num_train_epochs * max(
-                1, n // max(1, args.train_batch_size))
+                1, n // max(1, args.train_batch_size * self.data_groups))
         self.lr_fn = lr_schedule(args)
         if args.allow_tf32:
             torch.backends.cuda.matmul.allow_tf32 = True
@@ -295,8 +325,20 @@ class Trainer:
                 self.latent_store = GanLatentStore(args.gan_gt_path)
 
         prompts = load_prompts(args.training_prompts, args.max_train_samples)
-        self.dataset = PromptDataset(prompts, args.train_batch_size, seed=seed)
+        # split by data index: the ranks of one model group see the same rows
+        self.dataset = PromptDataset(
+            prompts, args.train_batch_size, seed=seed,
+            process_index=self.mesh.data_index if self.mesh is not None else 0,
+            process_count=self.data_groups)
+        # every rank draws the global batch's draws from the same seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        if self.mesh is not None:
+            mesh_lib.replicate(self._state_tensors(), self.mesh)
+            with torch.no_grad():
+                for st in (self.state, self.d_state):
+                    for n, p in (st.trainable.items() if st is not None else ()):
+                        if st.optimizer.masters[n] is not p:
+                            p.copy_(st.optimizer.masters[n])
 
         # resume (reference training_script.py:156-205)
         self.global_step = 0
@@ -308,7 +350,16 @@ class Trainer:
                 self.global_step, extra = ckpt_lib.restore_checkpoint(
                     path, self.state, self.d_state, self.generator)
                 self.state = self.state._replace(step=self.global_step)
-                if self.latent_store is not None and "latent_store_rng" in extra:
+                # each rank's store drew for its own prompts: it takes its own
+                # state back where the checkpoint holds every rank's
+                rngs = extra.get("latent_store_rngs")
+                if self.latent_store is not None and rngs is not None:
+                    world = self.mesh.world if self.mesh is not None else 1
+                    if len(rngs) != world:
+                        raise ValueError(f"{path}: latent-store states of {len(rngs)} "
+                                         f"ranks, this run has {world}")
+                    self.latent_store.rng.setstate(rngs[self.rank])
+                elif self.latent_store is not None and "latent_store_rng" in extra:
                     self.latent_store.rng.setstate(extra["latent_store_rng"])
                 self.logger.info("resumed from %s (step %d)", path, self.global_step)
 
@@ -340,7 +391,7 @@ class Trainer:
                                                      self.tcfg)
         self.train_step = make_train_step(
             self.pipeline, self.blip, self.tcfg, extra_losses, self.disc,
-            self.d_state.optimizer if self.d_state is not None else None)
+            self.d_state.optimizer if self.d_state is not None else None, self.mesh)
         # an image-dependent segmenter (Grounded-SAM) needs the generated
         # image: each step is split into the presample, the segmentation and
         # the differentiable step replaying the presample's tables
@@ -350,7 +401,8 @@ class Trainer:
 
         self.metrics = MetricsWriter(
             args.output_dir,
-            args.logging_dir if args.report_to in ("tensorboard", "all") else None)
+            args.logging_dir if args.report_to in ("tensorboard", "all") else None,
+            main=self.rank == 0)
         self.timer = StepTimer()
         self._pending_metrics = None
         self._profiler = None
@@ -508,6 +560,13 @@ class Trainer:
         raise RuntimeError(f"refusing to continue: {why}. Pass --allow_smoke to run "
                            "anyway (smoke testing only).")
 
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The fp32 masters of G and D, which `replicate` makes equal on
+        every rank at start (the optimizers' moments are empty until the
+        first step, and a resume restores the same on every rank)."""
+        return [m for st in (self.state, self.d_state) if st is not None
+                for m in st.optimizer.masters.values()]
+
     # ---- loop ----
     def _batch(self, prompts):
         batch = assemble_batch(prompts, self.clip_tok, self.caption_tok,
@@ -561,15 +620,22 @@ class Trainer:
         draws = None
         if self.presample is not None:
             # the split step (JAX trainer.py:785-798): the step's
-            # draws, taken from the generator as the step takes them
-            draws = sample_draws(self.tcfg, len(prompts), self.pcfg.latent_size,
-                                 self.generator, self.device)
-            image, eps_table, traj = self.presample(batch, draws, clock)
-            batch["seg_masks"] = self.seg_holder.device_masks(image, mark=clock.mark)
+            # draws, taken from the generator as the step takes them (the
+            # global batch's under a mesh; the presample takes its rows)
+            draws = sample_draws(self.tcfg, len(prompts) * self.data_groups,
+                                 self.pcfg.latent_size, self.generator, self.device)
+            mine = draws if self.mesh is None else local_draws(draws, self.mesh)
+            image, eps_table, traj = self.presample(batch, mine, clock)
+            batch["seg_masks"] = self._segment(image, clock)
             batch["eps_table"], batch["latents_traj"] = eps_table, traj
         # the step returns host floats, so it has synchronised
         self.state, m = self.train_step(self.state, batch, draws=draws,
                                         generator=self.generator, clock=clock)
+        if self.mesh is not None:
+            # a signal may reach the ranks at different steps: all stop after
+            # the same one, or one would wait forever in a collective
+            self._stop_requested = mesh_lib.any_rank(self._stop_requested, self.mesh,
+                                                     self.device)
         dt = self.timer.tick()
         self.global_step += 1
         if self.probe is not None:
@@ -578,6 +644,21 @@ class Trainer:
         self._flush_pending_metrics()
         self._pending_metrics = (self.global_step, m, len(prompts), dt)
         return m
+
+    def _segment(self, image: torch.Tensor, clock: PhaseClock) -> torch.Tensor:
+        """The masks of this rank's presampled images: the first rank of a
+        model group segments, the others take its masks, so that replicas
+        cannot disagree."""
+        mesh = self.mesh
+        if mesh is None or mesh.model == 1:
+            return self.seg_holder.device_masks(image, mark=clock.mark)
+        if mesh.model_index == 0:
+            masks = self.seg_holder.device_masks(image, mark=clock.mark)
+        else:
+            B, H, W, _ = image.shape
+            masks = torch.empty((B, self.seg_holder.max_words, H, W), dtype=torch.uint8,
+                                device=image.device)
+        return mesh_lib.broadcast_model(masks, mesh)
 
     def _train(self) -> None:
         args = self.args
@@ -657,7 +738,7 @@ class Trainer:
         host_m["lr"] = float(self.lr_fn(pstep))
         host_m["sec_per_step"] = dt
         if dt > 0:
-            host_m["images_per_sec"] = pbs / dt
+            host_m["images_per_sec"] = pbs * self.data_groups / dt
         self.metrics.log(host_m, pstep)
         self.logger.info("step %d: loss=%.4f reward=%.4f", pstep,
                          host_m.get("step_loss", 0.0), host_m.get("reward_blip", 0.0))
@@ -675,20 +756,32 @@ class Trainer:
         after a resume, :504-509)."""
         args = self.args
         if save:
-            extra = ({"latent_store_rng": self.latent_store.rng.getstate()}
-                     if self.latent_store is not None else {})
-            path = ckpt_lib.save_checkpoint(
-                args.output_dir, self.global_step, self.state, self.d_state,
-                self.generator, extra, total_limit=args.checkpoints_total_limit)
-            # the reference's artifact name, loadable by diffusers'
-            # LoraLoaderMixin (training_script.py:397-401)
-            ckpt_lib.export_lora_safetensors(
-                os.path.join(path, "pytorch_lora_weights.safetensors"),
-                self.state.optimizer.masters)
-            self.logger.info("saved checkpoint %s", path)
-        if ((args.validation_prompts or args.validation_prompts_file)
+            extra = {}
+            if self.latent_store is not None:
+                state = self.latent_store.rng.getstate()
+                if self.mesh is not None and self.mesh.world > 1:
+                    # each rank's store draws for its own prompts
+                    extra["latent_store_rngs"] = mesh_lib.all_gather_objects(state,
+                                                                             self.mesh)
+                else:
+                    extra["latent_store_rng"] = state
+            if self.rank == 0:
+                path = ckpt_lib.save_checkpoint(
+                    args.output_dir, self.global_step, self.state, self.d_state,
+                    self.generator, extra, total_limit=args.checkpoints_total_limit)
+                # the reference's artifact name, loadable by diffusers'
+                # LoraLoaderMixin (training_script.py:397-401)
+                ckpt_lib.export_lora_safetensors(
+                    os.path.join(path, "pytorch_lora_weights.safetensors"),
+                    self.state.optimizer.masters)
+                self.logger.info("saved checkpoint %s", path)
+        if (self.rank == 0 and (args.validation_prompts or args.validation_prompts_file)
                 and args.num_validation_images > 0):
             self._validate()
+        if self.mesh is not None:
+            # every rank waits for rank 0's files (the reference's
+            # wait_for_everyone)
+            mesh_lib.barrier(self.mesh)
 
     def _validate(self) -> None:
         """Every validation prompt at the full step count, one prompt at a

@@ -53,7 +53,8 @@ def test_importing_every_module_loads_no_jax():
             "comat_tpu_torch.tools.gan_gt_generate",
             "comat_tpu_torch.tools.evaluate", "comat_tpu_torch.models.quant",
             "comat_tpu_torch.ops.quant", "comat_tpu_torch.tools.stability_run",
-            "comat_tpu_torch.tools.parse_stats"} <= set(mods)
+            "comat_tpu_torch.tools.parse_stats", "comat_tpu_torch.parallel.mesh",
+            "comat_tpu_torch.parallel.tp"} <= set(mods)
     res = _run(f"""
         import importlib, sys
         for m in {mods!r}:

@@ -272,8 +272,8 @@ def test_clipped_adamw_matches_optax(scale, textenc_lr):
 def test_unported_flags_raise():
     """No flag of the step is left unported: the GAN, attribute
     concentration, remat, gradient accumulation, 8-bit Adam and the int8
-    pass 1 build the optimizer (the parser's one refusal,
-    --mesh_model_axis, is held in tests/test_torch_trainer_cli.py)."""
+    pass 1 build the optimizer (--mesh_model_axis, the parser's last
+    refusal, is ported too: tests/test_torch_ddp_trainer.py)."""
     tts.make_optimizer(tts.TrainConfig(gan_loss=True, attrcon=True,
                                        gradient_checkpointing=True, remat_min_res=64,
                                        gradient_accumulation_steps=2, use_8bit_adam=True,

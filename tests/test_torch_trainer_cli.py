@@ -74,14 +74,6 @@ def test_parser_matches_jax_on_sd15_flags(monkeypatch):
     assert targs.launcher_argv(str(PORT_SD15)) == argv + ["--allow_smoke"]
 
 
-@pytest.mark.parametrize("flags", [["--mesh_model_axis", "2"]])
-def test_unported_flags_raise_naming_their_item(flags):
-    """--mesh_model_axis above 1 (tensor parallelism), the one flag left
-    unported, raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1: "):
-        targs.parse_args(["--training_prompts", "p.txt", *flags])
-
-
 SURFACE_RUN = ["--tiny_models", "--device", "cpu", "--resolution", "64", "--lora_rank", "4",
                "--allow_smoke", "--report_to", "none"]
 

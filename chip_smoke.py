@@ -104,8 +104,8 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    comat_tpu_torch/scripts/sdxl.sh (the repo's scripts/sdxl.sh plus
    --allow_smoke: sdxl_attrcon_unet, 512^2, batch 6, total_step 50, K 5,
    CFG 7.5, LoRA 128, --gradient_checkpointing, the GAN with an
-   SD1.5-architecture D of its own, Grounded-SAM at A 2) for 3 steps, with
-   a checkpoint at step 0 and 3, against a GanLatentStore the SDXL VAE
+   SD1.5-architecture D of its own, Grounded-SAM at A 2) for 2 steps, with
+   a checkpoint at step 0 and 2, against a GanLatentStore the SDXL VAE
    encoder made from 6 seeded images; seconds per step and its split,
    peak memory, the launches by role against those the config predicts.
 13. snapshots: synthetic snapshots in the HF hub cache's layout, written
@@ -186,13 +186,14 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    from the same draws in turns, SD1.5 at batch 4 and SDXL at batch 6:
    seconds, the weight set's bytes and quantize seconds, cos of the final
    latents > 0.99 (JAX's gate), int8 launches per layer; then the trainer
-   on sd15.sh's flags with --pass1_int8 for 3 steps (`train_one`): s_step
+   on sd15.sh's flags with --pass1_int8 for 2 steps (`train_one`): s_step
    and its split beside phase 9's, peak memory, launches by role (every
    int8 launch in pass 1's), step 1's loss beside phase 9's bf16 step 1
    from the same draws;
 20. v-prediction: phase 4 with --prediction_type v_prediction (the same
-   gates), then again with --pass1_int8: the activation codes that differ
-   between card and CPU are counted and the loss and leaves reported; up
+   gates), then again with --pass1_int8, the card running the step and
+   the CPU pass 1 and its decode (every int8 call of the step): the
+   activation codes that differ between card and CPU are counted; up
    to the first quantize call whose codes differ the two sides' inputs
    agree to fp32 roundoff, and there every differing code sits within
    that roundoff of a .5 boundary of the code grid (gated);
@@ -217,7 +218,30 @@ Phases; any failure ends the run with a nonzero exit and no result line:
    fixed weighting of eps against the unsharded UNet on the same inputs:
    eps and every LoRA gradient at cos >= 0.9999 and max relative error <=
    1e-2; kernel A launches at 4 heads where the unsharded call launches
-   at 8.
+   at 8; then W8A8 on the tensor-parallel UNet: SD1.5's LoRA-free UNet
+   (the fused pass 1's) in bf16, `apply_tp` then `quantize_unet` on each
+   rank, one guided call (batch 2, 512^2) under the int8 weight set
+   against the unsharded int8 UNet: the weight codes and scales (each
+   rank's slice), every activation's scales and codes (a row-parallel
+   layer's input: its slice) and eps equal bit for bit; the quantize
+   kernel's launches on each rank, two a row-parallel quantize (the
+   absmax, then the codes after the MAX all-reduce);
+24. the native host runtime (`native_host.py`, `csrc/comat_host.cpp`):
+   (a) a g++ build of the host library from scratch, its seconds; (b) a
+   byte-level vocabulary written here (the 256 byte symbols, their </w>
+   forms, merges learned from the corpus): `NativeCLIPTokenizer` and
+   `CLIPBPETokenizer` give the same ids and EOS positions on every line
+   of merged_data/abc5k_hrs10k_t2icompall_20k.txt (its 4 non-ASCII
+   lines among them), each one's seconds; (c) phase 14's store plus a
+   second latent for some prompts and one NCHW file: `NativeLatentStore`
+   and `GanLatentStore` from one seed give identical arrays over one
+   prompt sequence, the seconds a batch of 4 takes in each; (d) the
+   trainer on phase 9's flags plus --tokenizer_dir (that vocabulary) and
+   --gan_gt_path (that store) over phase 14's prompts for 3 steps, which
+   holds the native pieces, then the same trainer built again with its
+   `clip_tok` and `latent_store` swapped for the Python pieces: each
+   step's loss and every G and D tensor after equal bit for bit, the
+   launches by role equal and phase 9's.
 Each phase prints the GiB allocated and reserved at its start. Then one
 JSON line {"kernels": [...], "checks": [...]} and, last, the
 device line. A kernel entry's `launches` counts the launches at its shape
@@ -227,9 +251,11 @@ with the VAE trained (dw), the full recipe's step, the latent store's
 encoding, the trainer CLI's run, SDXL's latent store and trainer run,
 the generation and trainer run from the SD1.5 snapshot, the latent tool's
 store, the accumulated trainer's runs, the evaluator, phases 16(b) and
-17's trainers, phase 19's pass 1 (int8) and trainer, phase 21's steps and
-phase 22(a)'s trainer (22(b) and 23 run in processes of their own, whose
-launches are checked there). Weights are random (the real ones are not in the
+17's trainers, phase 19's pass 1 (int8) and trainer, phase 21's steps,
+phase 22(a)'s trainer and phase 24(d)'s trainer on the native pieces
+(22(b) and 23 run in processes of their own, whose launches are checked
+there). The trainers over a store of .npy files (phase 9's and after)
+read it through `NativeLatentStore`. Weights are random (the real ones are not in the
 repository); depth is not cut.
 """
 
@@ -320,7 +346,7 @@ CLI_LAUNCHES = {
 # forwards (batch 6) and their recompute, not checkpointed; the decode as
 # phase 9's; the SD1.5-architecture D as phase 8's (15 A a call)
 SDXL_LAUNCHER = os.path.join("comat_tpu_torch", "scripts", "sdxl.sh")
-SDXL_STEPS = 3
+SDXL_STEPS = 2
 SDXL_CLI_LAUNCHES = {
     "pass1": {"flash_fwd": 50 * SDXL_ATTN},
     "presample": {"flash_fwd": 1, "conv_fwd": 21},
@@ -826,8 +852,9 @@ def phase_parity(torch, kernels):
 
     cfg = fp32_config("sd_1_5", 256)
     t0 = time.perf_counter()
-    cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
-    gpu = DiffusionPipeline(cfg, device="cuda", params=cpu.state_dicts())
+    # drawn on the card, copied to the CPU: the CPU's draws take seconds
+    gpu = DiffusionPipeline(cfg, device="cuda", seed=SEED)
+    cpu = DiffusionPipeline(cfg, device="cpu", params=gpu.state_dicts())
     log(f"  weights made in {time.perf_counter() - t0:.1f} s")
     tok = HashTokenizer(cfg.text.vocab_size)
     enc, null = tok(["a red cube on top of a blue sphere"]), tok([""])
@@ -946,8 +973,10 @@ def phase_train_parity(torch, fa, cv, kernels, prediction_type="epsilon", oq=Non
     (ops.quant) pass 1 runs W8A8 (--pass1_int8) and the activation codes of
     the two sides are compared: the fp32 roundoff of the card and the CPU
     puts some on either side of a code boundary, after which the int8
-    trajectories part, so the loss and the gradients are reported, not
-    gated."""
+    trajectories part, so nothing after the codes is compared, and the
+    CPU runs only what holds every int8 call of the step, pass 1 and its
+    decode (`make_presample`: the split step's pass 1, which the unsplit
+    step's equals bit for bit); the card runs the whole step."""
     from comat_tpu_torch.config import BLIPConfig
     from comat_tpu_torch.diffusion.schedulers import inference_timesteps
     from comat_tpu_torch.losses.gan import Discriminator, GanConfig, gan_d_loss
@@ -978,16 +1007,17 @@ def phase_train_parity(torch, fa, cv, kernels, prediction_type="epsilon", oq=Non
         oq.quantize = recording
     gan_cfg = GanConfig(lora_rank=128)
     t0 = time.perf_counter()
-    cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
+    # drawn on the card, copied to the CPU: the CPU's draws take seconds
+    gpu = DiffusionPipeline(cfg, device="cuda", seed=SEED)
     g = torch.Generator().manual_seed(SEED + 11)
-    _nonzero_lora_b(torch, cpu.unet, g)
-    d_cpu = Discriminator(cfg.unet, gan_cfg, device="cpu", base_unet=cpu.unet, seed=SEED + 7)
-    _nonzero_lora_b(torch, d_cpu, g)
-    gpu = DiffusionPipeline(cfg, device="cuda", params=cpu.state_dicts())
-    d_gpu = Discriminator(cfg.unet, gan_cfg, device="cuda", base_unet=gpu.unet)
-    d_gpu.load_state_dict(_d_own(d_cpu), strict=False)
-    blip_cpu = make_blip(bcfg, device="cpu", seed=SEED + 1)
-    blip_gpu = make_blip(bcfg, device="cuda", params=blip_cpu.state_dict())
+    _nonzero_lora_b(torch, gpu.unet, g)
+    d_gpu = Discriminator(cfg.unet, gan_cfg, device="cuda", base_unet=gpu.unet, seed=SEED + 7)
+    _nonzero_lora_b(torch, d_gpu, g)
+    cpu = DiffusionPipeline(cfg, device="cpu", params=gpu.state_dicts())
+    d_cpu = Discriminator(cfg.unet, gan_cfg, device="cpu", base_unet=cpu.unet)
+    d_cpu.load_state_dict(_d_own(d_gpu), strict=False)
+    blip_gpu = make_blip(bcfg, device="cuda", seed=SEED + 1)
+    blip_cpu = make_blip(bcfg, device="cpu", params=blip_gpu.state_dict())
     log(f"  weights made in {time.perf_counter() - t0:.1f} s")
     prompts = TRAIN_PROMPTS[:1]
     batch = _train_batch(prompts, cfg.text.vocab_size, bcfg.vocab_size)
@@ -1024,7 +1054,11 @@ def phase_train_parity(torch, fa, cv, kernels, prediction_type="epsilon", oq=Non
 
     t0 = time.perf_counter()
     try:
-        metrics_cpu, grads_cpu = run(cpu, blip_cpu, d_cpu)
+        if oq is None:
+            metrics_cpu, grads_cpu = run(cpu, blip_cpu, d_cpu)
+        else:
+            with torch.no_grad():
+                ts.make_presample(cpu, tcfg)(batch, draws)
         t_cpu = time.perf_counter() - t0
         del cpu, blip_cpu, d_cpu
         reset(kernels)
@@ -1037,6 +1071,34 @@ def phase_train_parity(torch, fa, cv, kernels, prediction_type="epsilon", oq=Non
             oq.quantize = quantize
     counts = counts_by_role(fa, cv)
     by_shape = {kern.symbol: dict(kern.launches_by_shape) for kern in kernels}
+    want_keys = {"step_loss", "reward_blip", "G_loss", "token_loss", "pixel_loss", "D_loss"}
+    if not want_keys <= set(metrics_gpu):
+        raise AssertionError(f"train parity metrics lack {want_keys - set(metrics_gpu)}")
+    if oq is not None:
+        calls = list(zip(codes["cpu"], codes["cuda"]))
+        differ = [int((a != b).sum()) for a, b in calls]
+        total = sum(a.numel() for a, _ in calls)
+        per_call = len(calls) // tcfg.total_step
+        first = sum(differ[:per_call])
+        log(f"  card {metrics_gpu} (CPU: pass 1 and its decode in {t_cpu:.1f} s; card: the "
+            f"step in {t_gpu:.1f} s)")
+        log(f"  int8 activation codes card vs CPU: {sum(differ)} of {total} differ "
+            f"({sum(differ) / max(total, 1):.3e}) over {len(calls)} quantize calls "
+            f"({len(codes['cpu'])} on the CPU); in pass 1's first UNet call {first} of "
+            f"{sum(a.numel() for a, _ in calls[:per_call])}, in its first layers "
+            f"{differ[:8]} of {[a.numel() for a, _ in calls[:8]]}")
+        log(f"  launches {counts}")
+        if len(codes["cpu"]) != len(codes["cuda"]) or not calls or not all(
+                math.isfinite(metrics_gpu[k]) for k in want_keys):
+            raise AssertionError(f"int8 parity: {len(codes['cpu'])} / {len(codes['cuda'])} "
+                                 f"quantize calls, metrics {metrics_gpu}")
+        _first_flip_at_a_boundary(torch, differ, calls, inputs)
+        if counts != PARITY_TRAIN_LAUNCHES:
+            raise AssertionError(f"train parity launched {counts}, "
+                                 f"expected {PARITY_TRAIN_LAUNCHES}")
+        del gpu, blip_gpu, d_gpu
+        torch.cuda.empty_cache()
+        return by_shape
     scale = max(float(g.abs().max()) for g in grads_cpu.values())
     rels, zero_leaves = {}, {}
     for name, gc in grads_cpu.items():
@@ -1061,32 +1123,6 @@ def phase_train_parity(torch, fa, cv, kernels, prediction_type="epsilon", oq=Non
     log(f"  worst LoRA leaf {lora_worst:.3e}, worst D leaf {d_worst:.3e}; zero-gradient "
         f"leaves, largest |g| over the largest gradient: {zero_leaves}")
     log(f"  launches {counts}")
-    want_keys = {"step_loss", "reward_blip", "G_loss", "token_loss", "pixel_loss", "D_loss"}
-    if not want_keys <= set(metrics_gpu):
-        raise AssertionError(f"train parity metrics lack {want_keys - set(metrics_gpu)}")
-    if oq is not None:
-        calls = list(zip(codes["cpu"], codes["cuda"]))
-        differ = [int((a != b).sum()) for a, b in calls]
-        total = sum(a.numel() for a, _ in calls)
-        per_call = len(calls) // tcfg.total_step
-        first = sum(differ[:per_call])
-        log(f"  int8 activation codes card vs CPU: {sum(differ)} of {total} differ "
-            f"({sum(differ) / max(total, 1):.3e}) over {len(calls)} quantize calls "
-            f"({len(codes['cpu'])} on the CPU); in pass 1's first UNet call {first} of "
-            f"{sum(a.numel() for a, _ in calls[:per_call])}, in its first layers "
-            f"{differ[:8]} of {[a.numel() for a, _ in calls[:8]]}; step loss |card - CPU| "
-            f"{diffs['step_loss']:.3e}, worst leaf {worst:.3e} (reported, not gated)")
-        if len(codes["cpu"]) != len(codes["cuda"]) or not calls or not all(
-                math.isfinite(metrics_gpu[k]) for k in want_keys):
-            raise AssertionError(f"int8 parity: {len(codes['cpu'])} / {len(codes['cuda'])} "
-                                 f"quantize calls, metrics {metrics_gpu}")
-        _first_flip_at_a_boundary(torch, differ, calls, inputs)
-        if counts != PARITY_TRAIN_LAUNCHES:
-            raise AssertionError(f"train parity launched {counts}, "
-                                 f"expected {PARITY_TRAIN_LAUNCHES}")
-        del gpu, blip_gpu, d_gpu
-        torch.cuda.empty_cache()
-        return by_shape
     if not all(math.isfinite(metrics_gpu[k]) and diffs[k] <= LOSS_TOL for k in want_keys):
         raise AssertionError(f"train loss components card vs CPU differ: {diffs}")
     if not worst <= GRAD_TOL:
@@ -1793,8 +1829,9 @@ def phase_sdxl_parity(torch, fa, cv, kernels):
 
     cfg = fp32_config("sdxl", 512)
     t0 = time.perf_counter()
-    cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
-    gpu = DiffusionPipeline(cfg, device="cuda", params=cpu.state_dicts())
+    # drawn on the card, copied to the CPU: the CPU's draws take seconds
+    gpu = DiffusionPipeline(cfg, device="cuda", seed=SEED)
+    cpu = DiffusionPipeline(cfg, device="cpu", params=gpu.state_dicts())
     n_par = {k: sum(p.numel() for p in m.parameters()) / 1e6
              for k, m in (("unet", cpu.unet), ("text", cpu.text), ("text2", cpu.text2),
                           ("vae", cpu.vae))}
@@ -2593,13 +2630,14 @@ def phase_surfaces_parity(torch, fa, cv, kernels):
     bcfg = dataclasses.replace(BLIPConfig.large(), dtype=torch.float32)
     tcfg = ts.TrainConfig(total_step=4, K=2, resolution=256, train_text_encoder=True)
     t0 = time.perf_counter()
-    cpu = DiffusionPipeline(cfg, device="cpu", seed=SEED)
+    # drawn on the card, copied to the CPU: the CPU's draws take seconds
+    gpu = DiffusionPipeline(cfg, device="cuda", seed=SEED)
     g = torch.Generator().manual_seed(SEED + 11)
-    _nonzero_lora_b(torch, cpu.unet, g)
-    _nonzero_lora_b(torch, cpu.text, g)
-    gpu = DiffusionPipeline(cfg, device="cuda", params=cpu.state_dicts())
-    blip_cpu = make_blip(bcfg, device="cpu", seed=SEED + 1)
-    blip_gpu = make_blip(bcfg, device="cuda", params=blip_cpu.state_dict())
+    _nonzero_lora_b(torch, gpu.unet, g)
+    _nonzero_lora_b(torch, gpu.text, g)
+    cpu = DiffusionPipeline(cfg, device="cpu", params=gpu.state_dicts())
+    blip_gpu = make_blip(bcfg, device="cuda", seed=SEED + 1)
+    blip_cpu = make_blip(bcfg, device="cpu", params=blip_gpu.state_dict())
     log(f"  weights made in {time.perf_counter() - t0:.1f} s")
     batch = _train_batch(TRAIN_PROMPTS[:1], cfg.text.vocab_size, bcfg.vocab_size)
     draws = ts.sample_draws(tcfg, 1, cfg.latent_size, torch.Generator().manual_seed(SEED + 3))
@@ -2944,10 +2982,10 @@ INT8_REPLACES = {
 }
 INT8_BATCHES = {"sd15": 4, "sdxl": SDXL_BATCH}     # phase 19's; CFG doubles them
 INT8_COS = 0.99          # JAX's gate, tests/test_quant.py: int8 against bf16
-INT8_STEPS = 3
+INT8_STEPS = 2
 INT8_TIME_BUDGET_MS = 60.0
 STABILITY_STEPS = 6
-N_PHASES = 23
+N_PHASES = 24
 
 
 def int8_counts(oq):
@@ -3583,10 +3621,88 @@ def _tp_rank(torch, rank):
         return cos, float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
     leaves = {n: cmp(ptp.gather_shard(g1[n], plan.get(n), mesh), g0[n]) for n in g0}
-    return {"eps": cmp(e1, e0), "leaves": leaves, "heads_ref": h0, "heads_tp": h1,
-            "sharded": len(plan), "seconds": sharded_s,
-            "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "finite": bool(np.isfinite(e1.cpu().numpy()).all())}
+    out = {"eps": cmp(e1, e0), "leaves": leaves, "heads_ref": h0, "heads_tp": h1,
+           "sharded": len(plan), "seconds": sharded_s,
+           "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "finite": bool(np.isfinite(e1.cpu().numpy()).all())}
+    del unet, e0, e1, g0, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int8"] = _tp_int8(torch, mesh, x, ctx, t)
+    return out
+
+
+def _tp_int8(torch, mesh, x, ctx, t):
+    """23's W8A8 part in one rank: SD1.5's LoRA-free UNet in bf16 (the fused
+    pass 1's), unsharded and sharded by `apply_tp`, each quantized by
+    `quantize_unet` and run once under its int8 weight set on the same
+    inputs. Returns whether the weight codes and scales, the activation
+    scales and codes (their slice where a row-parallel layer's input) and
+    eps are equal, and the quantize kernel's launches on each."""
+    import copy
+
+    import numpy as np
+
+    from comat_tpu_torch.config import UNetConfig
+    from comat_tpu_torch.models import quant as mq
+    from comat_tpu_torch.models.unet import UNet2DConditionModel
+    from comat_tpu_torch.ops import quant as oq
+    from comat_tpu_torch.parallel import tp as ptp
+    from comat_tpu_torch.weights import init_weights_
+
+    cfg = dataclasses.replace(UNetConfig.sd15(), dtype=torch.bfloat16)
+    unet = UNet2DConditionModel(cfg, lora_rank=0, device="cuda")
+    with torch.no_grad():
+        init_weights_(unet, torch.Generator(device="cuda").manual_seed(SEED + 26))
+    ref = copy.deepcopy(unet)
+    plan = ptp.apply_tp(unet, mesh)
+    inner, calls, runs = oq.quantize, [], {}
+
+    def recording(x, groups, role="act", group=None):
+        q, sc = inner(x, groups, role, group)
+        calls[-1].append((q.reshape(groups, -1), sc))
+        return q, sc
+
+    oq.quantize = recording
+    try:
+        with torch.no_grad():
+            for key, model in (("ref", ref), ("tp", unet)):
+                for kern in oq.KERNELS:
+                    kern.reset_counts()
+                calls.append([])
+                weights = mq.quantize_unet(model)
+                with mq.installed(model, weights):
+                    eps = model(x.bfloat16(), t, ctx.bfloat16())
+                torch.cuda.synchronize()
+                runs[key] = (weights, eps, calls[-1], {k.symbol: k.launches for k in oq.KERNELS})
+    finally:
+        oq.quantize = inner
+    (w0, e0, a0, n0), (w1, e1, a1, n1) = runs["ref"], runs["tp"]
+    weights_equal = 0
+    for name, w in w0.items():
+        shard = plan.get(name + ".weight")
+        q = ptp.shard_of(w.q, shard, mesh.model_index, mesh.model) if shard else w.q
+        sc = (ptp.shard_of(w.scale, shard, mesh.model_index, mesh.model)
+              if shard and shard.dim == 0 else w.scale)
+        weights_equal += torch.equal(q, w1[name].q) and torch.equal(sc, w1[name].scale)
+    acts_equal, first_diff = 0, None
+    for i, ((q0, s0), (q1, s1)) in enumerate(zip(a0, a1)):
+        if q1.shape[1] != q0.shape[1]:          # a row-parallel input: this rank's block
+            k = q1.shape[1]
+            q0 = q0[:, mesh.model_index * k:(mesh.model_index + 1) * k]
+        same = torch.equal(q0, q1) and torch.equal(s0, s1)
+        acts_equal += same
+        if not same and first_diff is None:
+            first_diff = i
+    row = sum(1 for n in w1 if getattr(unet.get_submodule(n), "row_group", None))
+    out = {"weights": (weights_equal, len(w0)), "acts": (acts_equal, len(a0), len(a1)),
+           "first_diff": first_diff, "eps": torch.equal(e0, e1), "row_layers": row,
+           "launches_ref": n0, "launches_tp": n1,
+           "finite": bool(torch.isfinite(e1).all())}
+    del unet, ref, runs, w0, w1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_tp(torch):
@@ -3613,6 +3729,239 @@ def phase_tp(torch):
             raise AssertionError(f"tensor parallelism, rank {rank}: {r['eps']}, "
                                  f"{worst_cos}, {worst_rel}, {r['heads_ref']}, "
                                  f"{r['heads_tp']}")
+    sym = "comat_quant_s8"      # ops.quant.QUANT_KERNEL's entry point
+    for rank, r in enumerate(out):
+        q = r["int8"]
+        extra = q["launches_tp"][sym] - q["launches_ref"][sym]
+        log(f"  W8A8, rank {rank}: weight codes and scales equal in {q['weights'][0]} of "
+            f"{q['weights'][1]} layers; activation codes and scales equal in {q['acts'][0]} "
+            f"of {q['acts'][1]} quantize calls ({q['acts'][2]} sharded; first differing "
+            f"{q['first_diff']}); eps equal: {q['eps']}; {q['row_layers']} row-parallel "
+            f"layers; launches unsharded {q['launches_ref']}, sharded {q['launches_tp']} "
+            f"(+{extra} quantize: weight and activation absmax passes of the row-parallel "
+            f"layers)")
+        want_extra = 2 * q["row_layers"]
+        same_other = all(q["launches_ref"][k] == q["launches_tp"][k]
+                         for k in q["launches_ref"] if k != sym)
+        if not (q["finite"] and q["eps"] and q["weights"][0] == q["weights"][1]
+                and q["acts"][0] == q["acts"][1] == q["acts"][2] > 0 and q["row_layers"] > 0
+                and extra == want_extra and same_other):
+            raise AssertionError(f"W8A8 under tensor parallelism, rank {rank}: {q}")
+
+
+# ---- phase 24: the native host runtime ----
+
+NATIVE_STEPS = 3
+NATIVE_BATCHES = 24       # store batches of TRAIN_BATCH compared and timed
+NATIVE_MERGES = 100
+
+
+def write_byte_vocab(path, lines, n_merges):
+    """A byte-level CLIP vocabulary in `path`: vocab.json with the 256 byte
+    symbols, their </w> forms and `n_merges` merges learned greedily (the
+    most frequent pair first) from the words of `lines`, CLIP's BOS and EOS
+    ids; merges.txt. Returns (vocab path, merges path)."""
+    import collections
+
+    from comat_tpu_torch.text.tokenizer import _CLIP_PAT, bytes_to_unicode
+
+    enc = bytes_to_unicode()
+    words = collections.Counter()
+    for line in lines:
+        for tok in _CLIP_PAT.findall(line.lower()):
+            sym = [enc[b] for b in tok.encode("utf-8")]
+            words[tuple(sym[:-1] + [sym[-1] + "</w>"])] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for w, n in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        (a, b), _ = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))
+        merges.append((a, b))
+        merged = collections.Counter()
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    symbols = [enc[b] for b in range(256)]
+    vocab = {}
+    for tok in symbols + [t + "</w>" for t in symbols] + [a + b for a, b in merges]:
+        vocab.setdefault(tok, len(vocab))
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return os.path.join(path, "vocab.json"), os.path.join(path, "merges.txt")
+
+
+def phase_native_host(torch, fa, cv, kernels, cli_argv, cli_median):
+    """24 (module docstring). Returns the launches by kernel and shape of
+    (d)'s trainer on the native pieces."""
+    import random
+
+    import numpy as np
+
+    from comat_tpu_torch import native_host as nh
+    from comat_tpu_torch.ops import _build
+    from comat_tpu_torch.text.tokenizer import CLIPBPETokenizer
+    from comat_tpu_torch.training import train_step as ts
+    from comat_tpu_torch.training.arguments import parse_args
+    from comat_tpu_torch.training.data import GanLatentStore, load_prompts, read_latent_index
+    from comat_tpu_torch.training.trainer import Trainer
+
+    work = os.path.join(REPO, "build", "chip_smoke", "native")   # build/ is ignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log("  " + gpu_name_and_power())
+
+    # (a) the host library from scratch
+    built_dir = _build.HOST_BUILD_DIR
+    _build.HOST_BUILD_DIR = os.path.join(work, "host")
+    try:
+        t0 = time.perf_counter()
+        lib = _build.build_host("comat_host")
+        build_s = time.perf_counter() - t0
+    finally:
+        _build.HOST_BUILD_DIR = built_dir
+    log(f"  (a) g++ {' '.join(_build.HOST_FLAGS)} of csrc/comat_host.cpp in {build_s:.2f} s "
+        f"({os.path.getsize(lib) / 2 ** 10:.0f} KiB; Unicode "
+        f"{nh.load_native().ch_unicode_version().decode()})")
+
+    # (b) the tokenizer on every line of the corpus
+    corpus = load_prompts(os.path.join(REPO, GAN_GT_CORPUS))
+    non_ascii = [p for p in corpus if not p.isascii()]
+    vocab, merges = write_byte_vocab(os.path.join(work, "tokenizer"),
+                                     corpus[:1000] + non_ascii, NATIVE_MERGES)
+    py, native = CLIPBPETokenizer(vocab, merges), nh.NativeCLIPTokenizer(vocab, merges)
+    t0 = time.perf_counter()
+    want = py(corpus)
+    py_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = native(corpus)
+    native_s = time.perf_counter() - t0
+    ids_equal = (np.array_equal(got["input_ids"], want["input_ids"])
+                 and np.array_equal(got["eos_positions"], want["eos_positions"]))
+    rows_equal = sum(bool(np.array_equal(a, b))
+                     for a, b in zip(got["input_ids"], want["input_ids"]))
+    log(f"  (b) {len(corpus)} prompts ({len(non_ascii)} non-ASCII: "
+        f"{[p for p in non_ascii]}), vocabulary of {256 * 2 + NATIVE_MERGES} pieces: ids "
+        f"and EOS positions equal {ids_equal} ({rows_equal} rows); CLIPBPETokenizer "
+        f"{py_s:.3f} s, NativeCLIPTokenizer {native_s:.3f} s (cold caches, one call each)")
+    if not ids_equal or len(non_ascii) != 4:
+        raise AssertionError(f"native tokenizer: {rows_equal} of {len(corpus)} rows equal, "
+                             f"{len(non_ascii)} non-ASCII prompts")
+
+    # (c) phase 14's store, a second latent for some prompts, one NCHW file
+    accum = os.path.join(REPO, "build", "chip_smoke", "accum")
+    src_index = os.path.join(accum, "gan_store", "index.jsonl")
+    prompts = load_prompts(os.path.join(accum, "prompts.txt"))
+    src = read_latent_index(src_index)
+    store = os.path.join(work, "store")
+    os.makedirs(store)
+    gen = np.random.default_rng(SEED + 24)
+    index = os.path.join(store, "index.jsonl")
+    with open(index, "w") as f:
+        for i, p in enumerate(prompts):
+            files = [os.path.join(os.path.dirname(src_index), rel) for rel in src[p]]
+            if i % 2 == 0:
+                lat = gen.standard_normal((64, 64, 4), np.float32)
+                name = f"extra_{i}.npy"
+                np.save(os.path.join(store, name), lat.transpose(2, 0, 1) if i == 6 else lat)
+                files.append(name)
+            for rel in files:
+                f.write(json.dumps({"prompt": p, "file_path": rel}) + "\n")
+    order = random.Random(SEED + 24)
+    seq = [[order.choice(prompts) for _ in range(TRAIN_BATCH)] for _ in range(NATIVE_BATCHES)]
+    n_store, p_store = nh.NativeLatentStore(index), GanLatentStore(index)
+    n_s, p_s, same = [], [], True
+    for batch in seq:
+        t0 = time.perf_counter()
+        a = n_store.batch(batch)
+        n_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        b = p_store.batch(batch)
+        p_s.append(time.perf_counter() - t0)
+        same = same and a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    same = same and n_store.rng.getstate() == p_store.rng.getstate()
+    n_store.close()
+    log(f"  (c) {len(prompts)} prompts, {sum(len(v) for v in read_latent_index(index).values())}"
+        f" latents (one NCHW): {NATIVE_BATCHES} batches of {TRAIN_BATCH} equal {same}; a "
+        f"batch: NativeLatentStore median {sorted(n_s)[len(n_s) // 2] * 1e3:.3f} ms, "
+        f"GanLatentStore {sorted(p_s)[len(p_s) // 2] * 1e3:.3f} ms (page cache warm after "
+        f"the first)")
+    if not same:
+        raise AssertionError("the native store's batches are not GanLatentStore's")
+
+    # (d) the trainer on the native pieces, then on the Python pieces
+    argv = list(cli_argv)
+    argv[argv.index("--training_prompts") + 1] = os.path.join(accum, "prompts.txt")
+    argv += ["--gan_gt_path", index, "--tokenizer_dir", os.path.dirname(vocab),
+             "--max_train_steps", str(NATIVE_STEPS)]
+    probe = lambda: counts_by_role(fa, cv)  # noqa: E731
+
+    def run(tag, swap):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset(kernels)
+        t0 = time.perf_counter()
+        trainer = Trainer(parse_args(argv + ["--output_dir", os.path.join(work, tag)]),
+                          probe=probe)
+        held = (type(trainer.clip_tok).__name__, type(trainer.latent_store).__name__)
+        if swap:
+            trainer.clip_tok = CLIPBPETokenizer(vocab, merges)
+            trainer.latent_store = GanLatentStore(index)
+        batches = (list(trainer.dataset.epoch(0)) + list(trainer.dataset.epoch(1)))
+        rows = [trainer.train_one(b) for b in batches[:NATIVE_STEPS]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = {"held": held, "rows": rows, "roles": _cli_roles(trainer), "wall": wall,
+               "shapes": {kern.symbol: dict(kern.launches_by_shape) for kern in kernels},
+               "g": {n: p.detach().cpu() for n, p in trainer.state.trainable.items()},
+               "d": {n: p.detach().cpu() for n, p in trainer.d_state.trainable.items()}}
+        del trainer
+        return out
+
+    nat, pyr = run("native", False), run("python", True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("s_step", *ts.PHASES)
+    for tag, r in (("native", nat), ("python", pyr)):
+        for i, m in enumerate(r["rows"], 1):
+            log(f"  (d) {tag} {r['held'] if tag == 'native' else '(swapped in)'} step {i}: "
+                f"loss {m['step_loss']!r}; " + ", ".join(f"{k} {m[k]:.3f}" for k in keys))
+    med = {tag: _median(r["rows"][1:], ("s_step",)) for tag, r in (("native", nat),
+                                                                   ("python", pyr))}
+    differ = [f"g.{n}" for n in nat["g"] if not torch.equal(nat["g"][n], pyr["g"][n])]
+    differ += [f"d.{n}" for n in nat["d"] if not torch.equal(nat["d"][n], pyr["d"][n])]
+    losses = [m["step_loss"] for m in nat["rows"]] == [m["step_loss"] for m in pyr["rows"]]
+    want_roles = {role: {k: n * NATIVE_STEPS for k, n in c.items()}
+                  for role, c in CLI_LAUNCHES.items()}
+    log(f"  (d) s_step median of steps 2-{NATIVE_STEPS}: native pieces "
+        f"{med['native']['s_step']:.3f} s, Python pieces {med['python']['s_step']:.3f} s "
+        f"(phase 9: {cli_median['s_step']:.3f} s); runs {nat['wall']:.1f} and "
+        f"{pyr['wall']:.1f} s with construction; losses equal {losses}; "
+        f"{len(nat['g'])} G and {len(nat['d'])} D tensors, {len(differ)} differ; launches by "
+        f"kernel, shape and role equal {nat['roles'] == pyr['roles']} "
+        f"{nat['shapes'] == pyr['shapes']}; {nat['roles']}, phase 9's a step times "
+        f"{NATIVE_STEPS}: {nat['roles'] == want_roles}")
+    if (nat["held"] != ("NativeCLIPTokenizer", "NativeLatentStore") or not losses or differ
+            or nat["roles"] != pyr["roles"] or nat["shapes"] != pyr["shapes"]
+            or set(nat["g"]) != set(pyr["g"])):
+        raise AssertionError(f"native pieces: held {nat['held']}, losses {losses}, differ "
+                             f"{differ[:5]}, roles {nat['roles']} / {pyr['roles']}")
+    return nat["shapes"]
 
 
 def main() -> int:
@@ -3757,8 +4106,14 @@ def main() -> int:
     del cli_first
 
     header(f"[23/{N_PHASES}] tensor parallelism: SD1.5's UNet at full width (fp32) sharded "
-           "over two ranks on this card (Gloo), one guided call at 512^2 and its LoRA backward")
+           "over two ranks on this card (Gloo), one guided call at 512^2 and its LoRA backward; "
+           "then W8A8 on the sharded bf16 UNet against the unsharded")
     phase_tp(torch)
+
+    header(f"[24/{N_PHASES}] native host runtime: the g++ build, the C++ tokenizer on the "
+           f"corpus, the C++ latent store, then sd15.sh's flags on the native pieces for "
+           f"{NATIVE_STEPS} steps against the Python pieces")
+    native_shapes = phase_native_host(torch, fa, cv, kernels, cli_argv, cli_median)
     ends = [t for _, t, _ in starts[1:]] + [time.perf_counter()]
     log("  seconds a phase (GiB allocated at its start): " + ", ".join(
         f"{n} {end - t:.1f} ({held:.2f})" for (n, t, held), end in zip(starts, ends)))
@@ -3782,7 +4137,7 @@ def main() -> int:
              "surfaces_trainer_cli": surf_shapes, "sdxl_surfaces_trainer": sxs_shapes,
              "int8_pass1_sd15": int8_shapes["sd15"], "int8_pass1_sdxl": int8_shapes["sdxl"],
              "int8_trainer_cli": int8_cli_shapes, "stability": stability_shapes,
-             "ddp_trainer_cli": ddp_shapes}
+             "ddp_trainer_cli": ddp_shapes, "native_trainer_cli": native_shapes}
     if sxs_batch != SDXL_BATCH:
         log(f"  phase 17 ran at batch {sxs_batch}, whose shapes phase 2 does not time: "
             "its launches are left out of the kernels line")

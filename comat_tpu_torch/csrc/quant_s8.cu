@@ -24,7 +24,9 @@
 // blocks with atomicMax on the bits of a non-negative float (the order of
 // non-negative floats is the order of their bits, so the result does not
 // depend on the blocks' order); a second kernel over the same blocks
-// writes the codes and, from the group's first block, the scale. A group
+// writes the codes and, from the group's first block, the scale (a
+// row-parallel layer under tensor parallelism runs the two passes as two
+// launches, its ranks' absmax reduced by a MAX all-reduce between). A group
 // of up to ~2.6 M values (a conv's sample at 64^2 x 640) spreads over
 // hundreds of blocks, a token row of 320-5120 values takes one.
 #include <cuda_bf16.h>
@@ -103,16 +105,19 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 cudaError_t quantize(const void* x, long long groups, long long n, void* q, void* scale,
-                     void* amax, cudaStream_t s) {
+                     void* amax, int phase, cudaStream_t s) {
   const long long chunks = (n + kChunk - 1) / kChunk;
   if (groups * chunks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(amax, 0, groups * sizeof(unsigned), s);
-  if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>(groups * chunks);
-  absmax_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(x), n, chunks,
-                                               static_cast<unsigned*>(amax));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err = cudaSuccess;
+  if (phase != 2) {
+    err = cudaMemsetAsync(amax, 0, groups * sizeof(unsigned), s);
+    if (err != cudaSuccess) return err;
+    absmax_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(x), n, chunks,
+                                                 static_cast<unsigned*>(amax));
+    err = cudaGetLastError();
+    if (err != cudaSuccess || phase == 1) return err;
+  }
   codes_kernel<T><<<blocks, kThreads, 0, s>>>(static_cast<const T*>(x), n, chunks,
                                               static_cast<const unsigned*>(amax),
                                               static_cast<int8_t*>(q),
@@ -123,13 +128,19 @@ cudaError_t quantize(const void* x, long long groups, long long n, void* q, void
 }  // namespace
 
 // x (groups, n) fp32 or bf16, contiguous -> q (groups, n) int8 and scale
-// (groups,) fp32; amax: (groups,) 4-byte scratch. Returns a cudaError_t.
+// (groups,) fp32; amax: (groups,) 4 bytes, the absmax's float bits.
+// phase 0: both passes (amax is scratch); 1: the absmax alone, into amax
+// (q and scale unused); 2: the codes and scales from the absmax in amax (a
+// tensor-parallel layer's, reduced over its ranks in between). Returns a
+// cudaError_t.
 extern "C" int comat_quant_s8(const void* x, int is_bf16, long long groups, long long n, void* q,
-                              void* scale, void* amax, void* stream) {
-  if (groups <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                              void* scale, void* amax, int phase, void* stream) {
+  if (groups <= 0 || n <= 0 || phase < 0 || phase > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? quantize<__nv_bfloat16>(x, groups, n, q, scale, amax, s)
-                                  : quantize<float>(x, groups, n, q, scale, amax, s));
+  return static_cast<int>(is_bf16
+                              ? quantize<__nv_bfloat16>(x, groups, n, q, scale, amax, phase, s)
+                              : quantize<float>(x, groups, n, q, scale, amax, phase, s));
 }
 
 // acc (M, N) int32 -> out (M, N) fp32 or bf16: (acc * sx[m / rows_per_scale])

@@ -25,6 +25,15 @@ Never quantized (JAX's `_quantizable` rule on diffusers names): any layer
 under `time_embedding`, `add_embedding` or `time_emb_proj`, the modules
 `conv_in` and `conv_out`, and the LoRA factors (no linear layers); norms
 and the attention products stay in the layer's dtype.
+
+Under tensor parallelism (`parallel.tp.apply_tp`) a column-parallel layer
+quantizes as it is (its input is whole, its weight rows and their scales
+its own); a row-parallel one (`row_group` set) takes its weight scales
+and each token's activation scale over the whole row, by MAX all-reduces
+over its model group, and sums its int32 products over the group before
+the dequantize and the bias: JAX's W8A8, whose absmax GSPMD takes over the
+whole logical tensor, so the sharded UNet's codes and outputs are the
+unsharded one's bit for bit.
 """
 
 from __future__ import annotations
@@ -52,14 +61,17 @@ class W8A8Weight(NamedTuple):
 
 class QLinear(nn.Linear):
     """nn.Linear with JAX's `QDense` int8 branch, taken while `installed`
-    has given it a weight set."""
+    has given it a weight set. `row_group` is set by `parallel.tp` on a
+    row-parallel layer: its weight columns and its input's features are
+    this rank's block of that group's."""
 
     w8a8: Optional[W8A8Weight] = None
+    row_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.w8a8 is None:
             return super().forward(x)
-        return int8_linear(x, *self.w8a8, self.weight.dtype)
+        return int8_linear(x, *self.w8a8, self.weight.dtype, group=self.row_group)
 
 
 class QConv2d(nn.Conv2d):
@@ -85,24 +97,24 @@ def quantizable(name: str) -> bool:
 
 
 @torch.no_grad()
-def weight_quant(weight: torch.Tensor) -> tuple:
+def weight_quant(weight: torch.Tensor, group=None) -> tuple:
     """JAX's `_weight_quant`: (codes, scales) per output channel of a
     linear (N, K) or conv (Cout, C, kh, kw) weight; a conv's codes are laid
-    out (Cout, kh*kw*C), the int8 conv's K-major order."""
+    out (Cout, kh*kw*C), the int8 conv's K-major order. With `group` the
+    weight is a row-parallel shard: each channel's scale is its whole
+    row's."""
     w2 = weight if weight.dim() == 2 else weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1)
-    return quantize(w2.contiguous(), w2.shape[0], role="weight")
+    if group is None:
+        return quantize(w2.contiguous(), w2.shape[0], role="weight")
+    return quantize(w2.contiguous(), w2.shape[0], role="weight", group=group)
 
 
 @torch.no_grad()
 def quantize_unet(unet: nn.Module) -> Dict[str, W8A8Weight]:
     """The int8 weight set of a UNet as its weights stand: {module name:
     W8A8Weight} for every quantizable linear and conv layer (JAX's
-    `quantize_unet_tree`). A UNet sharded by `parallel.tp` raises: a
-    row-parallel layer's per-token absmax would span its ranks."""
-    if getattr(unet, "tp_sharded", None):
-        raise NotImplementedError("W8A8 (--pass1_int8) under tensor parallelism: not "
-                                  "ported yet, ROADMAP Queue 1: int8 pass 1 under "
-                                  "parallel/tp.py")
+    `quantize_unet_tree`), a UNet sharded by `parallel.tp` included (each
+    rank's set holds its shards' codes, scaled as the whole weight's)."""
     out = {}
     for name, module in unet.named_modules():
         if not (isinstance(module, (nn.Linear, nn.Conv2d)) and quantizable(name)):
@@ -110,7 +122,7 @@ def quantize_unet(unet: nn.Module) -> Dict[str, W8A8Weight]:
         if not isinstance(module, (QLinear, QConv2d)):
             raise TypeError(f"{name}: a quantizable {type(module).__name__} without "
                             "the int8 branch")
-        q, s = weight_quant(module.weight)
+        q, s = weight_quant(module.weight, getattr(module, "row_group", None))
         bias = None if module.bias is None else module.bias.detach().float()
         out[name] = W8A8Weight(q, s, bias)
     return out

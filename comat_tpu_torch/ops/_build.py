@@ -1,10 +1,15 @@
-"""Build the CUDA sources under `csrc/` and bind them with ctypes.
+"""Build the sources under `csrc/` and bind them with ctypes.
 
-Each source is compiled on first use by `nvcc` for `sm_90a` into a shared
-library with a plain C interface, under `build/kernels/` at the repository
-root (listed in .gitignore). The file name carries a hash of the source,
-so an edited kernel is rebuilt and a stale library is never loaded.
+Each CUDA source is compiled on first use by `nvcc` for `sm_90a` into a
+shared library with a plain C interface, under `build/kernels/` at the
+repository root (listed in .gitignore). The file name carries a hash of the
+source, so an edited kernel is rebuilt and a stale library is never loaded.
 `build(names)` starts one `nvcc` per source at once and waits for all.
+
+The host sources (`csrc/<name>.cpp`, the native host runtime) are compiled
+the same way by g++, the host compiler nvcc itself needs, into
+`build/host/` (`build_host`); they need no card, so the CPU tests build
+and run them too. A failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Dict, Iterable, List, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "host")
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -89,6 +96,43 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return paths
+
+
+def host_library_path(name: str) -> str:
+    """Path of the library built from `csrc/<name>.cpp` as it stands now,
+    with the `.inc` tables under `csrc/` that it may include."""
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    tables = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".inc"))
+    for fname in [name + ".cpp", *tables]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(HOST_BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_host(name: str) -> str:
+    """Compile `csrc/<name>.cpp` with g++ unless its current library
+    exists; returns the library's path. Raises with the compiler's output
+    if the build fails."""
+    path = host_library_path(name)
+    if os.path.exists(path):
+        return path
+    compiler = os.environ.get("CXX") or shutil.which("g++")
+    if compiler is None:
+        raise RuntimeError("g++ not found: the native host library cannot be built")
+    os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run(
+            [compiler, *HOST_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"host build of {name}.cpp failed ({compiler} exit "
+                               f"{proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
 
 
 class CudaKernel:

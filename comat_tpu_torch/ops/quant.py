@@ -17,6 +17,13 @@ quantize and the dequantize kernels.
 A CPU tensor gets the plain version (the conv's int32 sums as `F.conv2d`
 in float64 on the codes, exact: |sum| <= 127^2 * 9 * 2560 < 2^53); a
 CUDA tensor launches the kernel or raises.
+
+Under tensor parallelism (`parallel.tp`) a row-parallel linear layer holds
+a block of each token's features: `quantize(..., group=)` takes each
+group's absmax over the ranks (an all-reduce MAX between the kernel's two
+passes), `int8_linear(..., group=)` sums the ranks' int32 products (an
+all-reduce SUM, exact) before the dequantize, so the codes, the sums and
+the output are the unsharded layer's, bit for bit.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from comat_tpu_torch.ops._build import CudaKernel
@@ -34,7 +42,7 @@ EPS = 1e-12
 QUANT_KERNEL = CudaKernel(
     "quant_s8", "comat_quant_s8",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
-    + [ctypes.c_void_p] * 3 + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
 )
 DEQUANT_KERNEL = CudaKernel(
     "quant_s8", "comat_dequant_s8",
@@ -54,27 +62,33 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def quantize_ref(x: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_ref(x: torch.Tensor, groups: int,
+                 group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `quantize`. The divisor 127 is a tensor on x's
     device: PyTorch's CUDA division by a Python scalar multiplies by its
     reciprocal, one rounding more than JAX's division."""
     xf = x.float().reshape(groups, -1)
-    s = xf.abs().amax(dim=1, keepdim=True).clamp_min(EPS) / torch.full(
-        (), 127.0, device=x.device)
+    amax = xf.abs().amax(dim=1, keepdim=True)
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    s = amax.clamp_min(EPS) / torch.full((), 127.0, device=x.device)
     q = torch.round(xf / s).clamp(-127, 127).to(torch.int8)
     return q.reshape(x.shape), s.reshape(groups)
 
 
-def quantize(x: torch.Tensor, groups: int,
-             role: str = "act") -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize(x: torch.Tensor, groups: int, role: str = "act",
+             group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric dynamic int8 codes of x (contiguous, fp32 or bf16), one
     scale a group: x viewed as (groups, n), n = x.numel() // groups (a
     linear's tokens: groups = rows; a conv's samples: groups = B; a
     weight's output channels: groups = Cout). Returns (codes int8 of x's
     shape, scales fp32 (groups,)). `role` ("act" or "weight") only labels
-    the launch in `QUANT_KERNEL.launches_by_shape`."""
+    the launch in `QUANT_KERNEL.launches_by_shape`. With `group` (a process
+    group whose ranks each hold a block of every group's values) the
+    absmax is the group's over all ranks: two launches, the absmax and the
+    codes, with a MAX all-reduce between."""
     if x.device.type == "cpu":
-        return quantize_ref(x, groups)
+        return quantize_ref(x, groups, group)
     if not x.is_cuda or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"quantize takes fp32 or bf16 CPU or CUDA tensors, got "
                          f"{x.dtype} on {x.device}")
@@ -84,12 +98,17 @@ def quantize(x: torch.Tensor, groups: int,
     n = x.numel() // groups
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty(groups, dtype=torch.float32, device=x.device)
+    # the absmax's float bits: non-negative floats order as their bits
     amax = torch.empty(groups, dtype=torch.int32, device=x.device)
-    QUANT_KERNEL.launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), groups, n, q.data_ptr(),
-        s.data_ptr(), amax.data_ptr(),
-        shape=(groups, n, _dtype_name(x.dtype), role),
-    )
+    args = (x.data_ptr(), int(x.dtype == torch.bfloat16), groups, n, q.data_ptr(),
+            s.data_ptr(), amax.data_ptr())
+    key = (groups, n, _dtype_name(x.dtype), role)
+    if group is None:
+        QUANT_KERNEL.launch(*args, 0, shape=key)
+    else:
+        QUANT_KERNEL.launch(*args, 1, shape=key)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        QUANT_KERNEL.launch(*args, 2, shape=key)
     return q, s
 
 
@@ -131,19 +150,25 @@ def dequant(acc: torch.Tensor, sx: torch.Tensor, rows_per_scale: int, ws: torch.
 
 
 def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
-                bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+                bias: Optional[torch.Tensor], dtype: torch.dtype,
+                group=None) -> torch.Tensor:
     """JAX's int8 `QDense`: x (..., K) quantized per token, the int32
     product with the codes wq (N, K) by `torch._int_mm`, dequantized with
     the weight scales ws (N,) and the fp32 bias (N,) into `dtype`. On CUDA
-    `torch._int_mm` asks M > 16 and K, N multiples of 8."""
+    `torch._int_mm` asks M > 16 and K, N multiples of 8. With `group` x and
+    wq hold this rank's block of the K features (a row-parallel layer): the
+    tokens' absmax and the int32 sums are taken over the group's ranks, the
+    bias added once."""
     K, N = x.shape[-1], wq.shape[0]
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
     if x.is_cuda and (M <= 16 or K % 8 or N % 8):
         raise ValueError(f"int8_linear on CUDA needs M > 16 and K, N % 8 == 0, got "
                          f"M={M}, K={K}, N={N}")
-    xq, sx = quantize(x2, M)
+    xq, sx = quantize(x2, M) if group is None else quantize(x2, M, group=group)
     acc = torch._int_mm(xq, wq.t())
+    if group is not None:
+        dist.all_reduce(acc, group=group)
     return dequant(acc, sx, 1, ws, bias, dtype).reshape(*x.shape[:-1], N)
 
 

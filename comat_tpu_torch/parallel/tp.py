@@ -35,8 +35,12 @@ that `fuse_lora` folds each shard into its own, before the train state is
 made; a step with `make_train_step(mesh=)` then clips by the norm that
 counts each shard once across its model group. JAX's trainer never
 applies its rule (`Trainer` replicates), and neither does the port's.
-W8A8 (--pass1_int8) under it raises: a row-parallel input's per-token
-absmax would span ranks.
+W8A8 (--pass1_int8, `models.quant`) runs on the sharded layers as JAX's
+runs on sharded parameters: a row-parallel layer (`row_group` set on its
+`QLinear`) takes each token's absmax and each weight row's over its
+ranks and sums its int32 products over them, so the sharded int8 UNet is
+the unsharded one bit for bit; the LoRA branch of an unfused row-parallel
+layer keeps its fp32 all-reduce.
 """
 
 from __future__ import annotations
@@ -170,7 +174,7 @@ class ColumnParallelLoRALinear(LoRALinear):
     tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(_CopyToModel.apply(x, self.tp_group), self.base.weight, self.base.bias)
+        y = self.base(_CopyToModel.apply(x, self.tp_group))
         if self.lora_rank > 0:
             dt = self.base.weight.dtype
             t = _CopyToModel.apply(x.to(dt) @ self.lora_a.to(dt), self.tp_group)
@@ -187,6 +191,14 @@ class RowParallelLoRALinear(LoRALinear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.base.weight
+        if self.base.w8a8 is not None:
+            # the int8 base sums its own int32 products over the group
+            y = self.base(x)
+            if self.lora_rank > 0:
+                t = _ReduceFromModel.apply((x.to(w.dtype) @ self.lora_a.to(w.dtype)).float(),
+                                           self.tp_group).to(w.dtype)
+                y = y + (t @ self.lora_b.to(w.dtype)).to(y.dtype)
+            return y
         parts = [F.linear(x, w)]
         if self.lora_rank > 0:
             parts.append(x.to(w.dtype) @ self.lora_a.to(w.dtype))
@@ -206,7 +218,7 @@ class ColumnParallelLinear(QLinear):
     tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(_CopyToModel.apply(x, self.tp_group), self.weight, self.bias)
+        return super().forward(_CopyToModel.apply(x, self.tp_group))
 
 
 class RowParallelLinear(QLinear):
@@ -215,6 +227,8 @@ class RowParallelLinear(QLinear):
     tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.w8a8 is not None:
+            return super().forward(x)       # int8, summed over `row_group`
         y = _ReduceFromModel.apply(F.linear(x, self.weight).float(), self.tp_group)
         y = y.to(self.weight.dtype)
         return y + self.bias if self.bias is not None else y
@@ -278,10 +292,12 @@ def apply_tp(unet: nn.Module, mesh: Mesh) -> Dict[str, Shard]:
             for proj in (module.to_q, module.to_k, module.to_v):
                 proj.__class__ = ColumnParallelLoRALinear
             module.to_out[0].__class__ = RowParallelLoRALinear
+            module.to_out[0].base.row_group = mesh.model_group
             layers = (module, module.to_q, module.to_k, module.to_v, module.to_out[0])
         elif isinstance(module, FeedForward) and f"{name}.net.0.proj" in sharded_layers:
             module.net[0].proj.__class__ = ColumnParallelLinear
             module.net[2].__class__ = RowParallelLinear
+            module.net[2].row_group = mesh.model_group
             layers = (module.net[0].proj, module.net[2])
         else:
             continue

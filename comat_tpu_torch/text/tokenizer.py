@@ -61,6 +61,12 @@ def _whitespace_clean(text: str) -> str:
     return re.sub(r"\s+", " ", text).strip()
 
 
+def clean_text(text: str) -> str:
+    """What the CLIP tokenizers split: HTML entities resolved (twice, as
+    CLIP does), whitespace runs made one space, lower case."""
+    return _whitespace_clean(html.unescape(html.unescape(text))).lower()
+
+
 class CLIPBPETokenizer:
     """CLIP byte-pair encoding tokenizer (OpenAI vocab, 49408 tokens).
 
@@ -139,7 +145,7 @@ class CLIPBPETokenizer:
         return out
 
     def tokenize(self, text: str) -> List[int]:
-        text = _whitespace_clean(html.unescape(html.unescape(text))).lower()
+        text = clean_text(text)
         ids: List[int] = []
         for tok in _CLIP_PAT.findall(text):
             tok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
@@ -169,7 +175,7 @@ class CLIPBPETokenizer:
             )
             return raw.decode("utf-8", errors="replace") + suffix
 
-        text = _whitespace_clean(html.unescape(html.unescape(text))).lower()
+        text = clean_text(text)
         pieces: List[str] = ["<|startoftext|>"]
         for tok in _CLIP_PAT.findall(text):
             tok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))

@@ -91,6 +91,27 @@ class PromptDataset:
             yield [self.prompts[j] for j in order[i + lo : i + lo + self.batch_size]]
 
 
+def read_latent_index(index_path: str) -> Dict[str, List[str]]:
+    """{prompt: [file path, ...]} of a jsonl latent index, in file order."""
+    by_prompt: Dict[str, List[str]] = {}
+    with open(index_path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            rec = json.loads(line)
+            by_prompt.setdefault(rec["prompt"], []).append(rec["file_path"])
+    return by_prompt
+
+
+def to_nhwc(lat: np.ndarray) -> np.ndarray:
+    """A stored latent in NHWC: the reference saves torch NCHW
+    (gan_gt_generate.py), our tooling NHWC npy; a (4, h, w) array is
+    transposed."""
+    if lat.ndim == 3 and lat.shape[0] == 4:
+        lat = np.transpose(lat, (1, 2, 0))
+    return lat
+
+
 class GanLatentStore:
     """jsonl-indexed latent store (reference: Gan_Dataset,
     training_utils/gan_dataset.py:40-66). Multiple entries per prompt
@@ -100,22 +121,17 @@ class GanLatentStore:
 
     def __init__(self, index_path: str, root: Optional[str] = None, seed: int = 0):
         self.root = root or os.path.dirname(os.path.abspath(index_path))
-        self.by_prompt: Dict[str, List[str]] = {}
-        with open(index_path) as f:
-            for line in f:
-                if not line.strip():
-                    continue
-                rec = json.loads(line)
-                self.by_prompt.setdefault(rec["prompt"], []).append(
-                    rec["file_path"]
-                )
+        self.by_prompt = read_latent_index(index_path)
         self.rng = random.Random(seed)
 
     def prompts(self) -> List[str]:
         return list(self.by_prompt.keys())
 
+    def _path(self, rel: str) -> str:
+        return rel if os.path.isabs(rel) else os.path.join(self.root, rel)
+
     def _load(self, rel: str) -> np.ndarray:
-        path = rel if os.path.isabs(rel) else os.path.join(self.root, rel)
+        path = self._path(rel)
         if path.endswith(".npy"):
             return np.load(path)
         if path.endswith(".pt"):
@@ -126,12 +142,7 @@ class GanLatentStore:
 
     def sample(self, prompt: str) -> np.ndarray:
         files = self.by_prompt[prompt]
-        lat = self._load(self.rng.choice(files))
-        # stored layout: reference saves torch NCHW (gan_gt_generate.py);
-        # our tooling saves NHWC npy. Normalize to NHWC.
-        if lat.ndim == 3 and lat.shape[0] == 4:
-            lat = np.transpose(lat, (1, 2, 0))
-        return lat
+        return to_nhwc(self._load(self.rng.choice(files)))
 
     def batch(self, prompts: Sequence[str]) -> np.ndarray:
         return np.stack([self.sample(p) for p in prompts])

@@ -70,6 +70,16 @@ in JAX. Real runs refuse the smoke fallbacks (seeded tower or caption
 weights, tensors a snapshot lacks, hash tokenizers, zero GAN latents)
 unless --allow_smoke (`smoke_fallbacks` lists those taken); a snapshot
 that lacks a tower's tensors is refused at --tiny_models too.
+
+Host pieces, where JAX's trainer takes its native ones: with
+--tokenizer_dir holding vocab.json and merges.txt the CLIP tokenizer is
+`native_host.NativeCLIPTokenizer` (at --tiny_models too, an explicit
+vocabulary being read there as --blip_tokenizer_vocab is; SDXL's second
+tokenizer stays `CLIPBPETokenizer`), and with --gan_gt_path the latent
+store is `native_host.NativeLatentStore` when every index entry is a .npy
+file, else `GanLatentStore` (one log line names the file that decided).
+Both give the Python pieces' ids and latents, so a step is the same bit
+for bit either way.
 """
 
 from __future__ import annotations
@@ -101,6 +111,7 @@ from comat_tpu_torch.models.pipeline import (
     make_pipeline_config,
     resolve_device,
 )
+from comat_tpu_torch.native_host import NativeCLIPTokenizer, NativeLatentStore
 from comat_tpu_torch.text.tokenizer import (
     BertWordPieceTokenizer,
     HashTokenizer,
@@ -113,6 +124,7 @@ from comat_tpu_torch.training.data import (
     PromptDataset,
     assemble_batch,
     load_prompts,
+    read_latent_index,
 )
 from comat_tpu_torch.training.logging_utils import MetricsWriter, StepTimer, set_logger
 from comat_tpu_torch.training.train_step import (
@@ -232,7 +244,11 @@ class Trainer:
             self._smoke_gate(
                 "--gan_loss without --gan_gt_path: the discriminator would train "
                 "against all-zero GT latents", kind="data")
-        if tiny:
+        clip_files = [os.path.join(args.tokenizer_dir or "", f)
+                      for f in ("vocab.json", "merges.txt")]
+        if args.tokenizer_dir and all(os.path.isfile(f) for f in clip_files):
+            self.clip_tok = NativeCLIPTokenizer(*clip_files)
+        elif tiny:
             self.clip_tok = HashTokenizer(self.pcfg.text.vocab_size)
         else:
             self.clip_tok = load_clip_tokenizer(args.tokenizer_dir)
@@ -322,7 +338,7 @@ class Trainer:
                 self.disc, self.tcfg, lr=args.learning_rate_D, b1=args.adam_beta1_D,
                 b2=args.adam_beta2_D, max_grad_norm=args.max_grad_norm_D)
             if args.gan_gt_path:
-                self.latent_store = GanLatentStore(args.gan_gt_path)
+                self.latent_store = self._latent_store(args.gan_gt_path)
 
         prompts = load_prompts(args.training_prompts, args.max_train_samples)
         # split by data index: the ranks of one model group see the same rows
@@ -749,6 +765,17 @@ class Trainer:
             if len(hist) >= 5 and dt > 3.0 * med:
                 self.logger.warning("step %d took %.1fs (median %.1fs): possible "
                                     "straggler", pstep, dt, med)
+
+    def _latent_store(self, index: str):
+        """The native store over an index of .npy files, else the Python
+        one (which also reads the reference's .pt files)."""
+        other = next((f for files in read_latent_index(index).values() for f in files
+                      if not f.endswith(".npy")), None)
+        if other is None:
+            return NativeLatentStore(index)
+        self.logger.info("latent store %s: %s is not a .npy file, so the Python "
+                         "GanLatentStore reads it", index, other)
+        return GanLatentStore(index)
 
     def save_and_evaluate(self, save: bool = True) -> None:
         """Checkpoint, LoRA export and validation images (reference

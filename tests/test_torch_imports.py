@@ -54,7 +54,8 @@ def test_importing_every_module_loads_no_jax():
             "comat_tpu_torch.tools.evaluate", "comat_tpu_torch.models.quant",
             "comat_tpu_torch.ops.quant", "comat_tpu_torch.tools.stability_run",
             "comat_tpu_torch.tools.parse_stats", "comat_tpu_torch.parallel.mesh",
-            "comat_tpu_torch.parallel.tp"} <= set(mods)
+            "comat_tpu_torch.parallel.tp", "comat_tpu_torch.native_host",
+            "comat_tpu_torch.tools.gen_unicode_classes"} <= set(mods)
     res = _run(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -72,6 +73,25 @@ def test_no_source_names_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|comat_tpu)(\.|\s|$)", re.M)
     for path in list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
+
+
+def test_native_host_loads_its_own_library():
+    """The port's host library is built from its own source into
+    build/host/, never JAX's native/libcomat_host.so."""
+    res = _run("""
+        import sys
+        from comat_tpu_torch import native_host
+        lib = native_host.load_native()
+        print("LIB", lib._name)
+        print("BAD", [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                      or m == "comat_tpu" or m.startswith("comat_tpu.")])
+    """)
+    assert res.returncode == 0, res.stderr
+    lib = res.stdout.split("LIB ", 1)[1].split()[0]
+    assert pathlib.Path(lib).parent == REPO / "build" / "host", lib
+    assert pathlib.Path(lib).name.startswith("libcomat_host-"), lib
+    assert "BAD []" in res.stdout, res.stdout
+    assert "native/" not in (PKG / "native_host.py").read_text()
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu():

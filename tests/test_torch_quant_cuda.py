@@ -50,6 +50,26 @@ def test_quantize_kernel_equals_plain(card, dtype, shape, groups):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_quantize_over_a_group_equals_one_pass(card, dtype, tmp_path):
+    """The row-parallel quantize (the absmax, a MAX all-reduce, the codes:
+    two launches) in a group of one rank gives the one-pass codes."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'group'}",
+                            world_size=1, rank=0)
+    try:
+        x = _planted(torch.randn((616, 768), generator=card, device="cuda") * 3).to(dtype)
+        before = tq.QUANT_KERNEL.launches
+        q, s = tq.quantize(x, 616, group=dist.group.WORLD)
+        assert tq.QUANT_KERNEL.launches == before + 2
+        q_ref, s_ref = tq.quantize_ref(x, 616)
+        assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [True, False])
 def test_dequant_kernel_equals_plain(card, dtype, bias):
     M, N = 1000, 640

@@ -1694,6 +1694,7 @@ def phase_gsam(torch):
     from comat_tpu_torch.segmentation.fastsam import YoloSegConfig, decode_predictions
     from comat_tpu_torch.segmentation.gdino import GDinoConfig, ground_nouns
     from comat_tpu_torch.segmentation.grounded_sam import GroundedSAMSegmenter, gdino_input
+    from comat_tpu_torch.trace import PhaseClock
 
     f32 = dict(sam_cfg=dataclasses.replace(YoloSegConfig.fastsam_x(), dtype=torch.float32),
                gdino_cfg=dataclasses.replace(GDinoConfig.swint_ogc(), dtype=torch.float32),
@@ -1790,15 +1791,19 @@ def phase_gsam(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(3):
-        marks = {}
 
-        def mark(name):
+    class SyncedClock(PhaseClock):
+        """Each mark waits for the device and keeps the host's time."""
+
+        def mark(self, name):
             torch.cuda.synchronize()
             marks[name] = time.perf_counter()
 
+    for _ in range(3):
+        marks = {}
         t0 = time.perf_counter()
-        out = seg.batch(images, GSAM_NOUNS, mark=mark)
+        with SyncedClock(torch.device("cuda")).active():
+            out = seg.batch(images, GSAM_NOUNS)
         t_end = time.perf_counter()
         times.append((marks["segment_device"] - t0, t_end - marks["segment_device"]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.diffusion.schedulers import (
     SamplerCoeffs,
     ddpm_step_from_coeffs,
@@ -60,7 +61,9 @@ def sample_inference(
     `eps_model(x, t)` returns the guided eps. Each step's noise is
     `step_noise[i]` when given, else a standard normal draw from
     `generator`. Returns (final latents, eps table (S, B, h, w, 4),
-    trajectory of step inputs (S, B, h, w, 4))."""
+    trajectory of step inputs (S, B, h, w, 4)). Each guided call is a span
+    "unet" on the active clock, with the mark "unet>" at its end
+    (`comat_tpu_torch.trace`)."""
     S = len(coeffs.timesteps)
     if step_noise is not None and step_noise.shape[:1] != (S,):
         raise ValueError(
@@ -69,7 +72,9 @@ def sample_inference(
     x = latents0
     eps_table, traj = [], []
     for i in range(S):
-        eps = eps_model(x, int(coeffs.timesteps[i]))
+        with trace.span("unet"):
+            eps = eps_model(x, int(coeffs.timesteps[i]))
+            trace.mark("unet>")
         if step_noise is not None:
             noise = step_noise[i].to(device=x.device, dtype=torch.float32)
         else:
@@ -86,8 +91,8 @@ def sample_inference(
 class _CachedPrimalEps(torch.autograd.Function):
     """The guided eps at a trained step, as `_make_cached_primal_eps`.
 
-    forward(diff_eps_model, t, mark, n_cond, x, cached_eps, *conds,
-    *params) returns `cached_eps` (pass 1's eps at the same point) and
+    forward(diff_eps_model, t, n_cond, x, cached_eps, *conds, *params)
+    returns `cached_eps` (pass 1's eps at the same point) and
     runs no UNet. `conds` are the `n_cond` conditioning tensors the model
     takes after (x, t), each possibly None: the context and the null
     context, and with SDXL the pooled text embeds of the prompts and of
@@ -99,8 +104,8 @@ class _CachedPrimalEps(torch.autograd.Function):
     so their gradients reach them through autograd."""
 
     @staticmethod
-    def forward(ctx, diff_eps_model, t, mark, n_cond, x, cached_eps, *inputs):
-        ctx.diff_eps_model, ctx.t, ctx.mark, ctx.n_cond = diff_eps_model, t, mark, n_cond
+    def forward(ctx, diff_eps_model, t, n_cond, x, cached_eps, *inputs):
+        ctx.diff_eps_model, ctx.t, ctx.n_cond = diff_eps_model, t, n_cond
         ctx.save_for_backward(x, *inputs)
         return cached_eps.clone()
 
@@ -108,8 +113,8 @@ class _CachedPrimalEps(torch.autograd.Function):
     def backward(ctx, g):
         x, *inputs = ctx.saved_tensors
         n = ctx.n_cond
-        need = [ctx.needs_input_grad[4], *ctx.needs_input_grad[6:]]
-        ctx.mark("replay_bwd<")
+        need = [ctx.needs_input_grad[3], *ctx.needs_input_grad[5:]]
+        trace.mark("replay_bwd<")
         with torch.enable_grad():
             xs = x.detach().requires_grad_(need[0])
             conds = [None if c is None else c.detach().requires_grad_(k)
@@ -119,15 +124,15 @@ class _CachedPrimalEps(torch.autograd.Function):
             picked = [w for w, k in zip(wrt, need) if k]
             grads = iter(torch.autograd.grad(eps, picked, g, allow_unused=True))
         out = [next(grads) if k else None for k in need]
-        ctx.mark("replay_bwd>")
-        return (None, None, None, None, out[0], None, *out[1:])
+        trace.mark("replay_bwd>")
+        return (None, None, None, out[0], None, *out[1:])
 
 
 class _CaptureOnly(torch.autograd.Function):
     """The captured maps at one attribute-concentration segment, as
     `_make_capture_only`.
 
-    forward(capture_primal, t, mark, layout, n_cond, x, *conds, *params)
+    forward(capture_primal, t, layout, n_cond, x, *conds, *params)
     runs `capture_primal(x, t, *conds)` -> {key: [maps]} (the cond-half
     capture forward, batch B, no guidance; `conds` the context and, with
     SDXL, the prompts' pooled text embeds) without gradients and returns
@@ -138,8 +143,8 @@ class _CaptureOnly(torch.autograd.Function):
     inputs: the backward recomputes its own residuals."""
 
     @staticmethod
-    def forward(ctx, capture_primal, t, mark, layout, n_cond, x, *inputs):
-        ctx.capture_primal, ctx.t, ctx.mark, ctx.n_cond = capture_primal, t, mark, n_cond
+    def forward(ctx, capture_primal, t, layout, n_cond, x, *inputs):
+        ctx.capture_primal, ctx.t, ctx.n_cond = capture_primal, t, n_cond
         ctx.save_for_backward(x, *inputs)
         maps = capture_primal(x, t, *inputs[:n_cond])
         layout[:] = [(key, len(v)) for key, v in maps.items()]
@@ -149,8 +154,8 @@ class _CaptureOnly(torch.autograd.Function):
     def backward(ctx, *gs):
         x, *inputs = ctx.saved_tensors
         n = ctx.n_cond
-        need = list(ctx.needs_input_grad[5:])
-        ctx.mark("capture_bwd<")
+        need = list(ctx.needs_input_grad[4:])
+        trace.mark("capture_bwd<")
         with torch.enable_grad():
             xs = x.detach().requires_grad_(need[0])
             conds = [None if c is None else c.detach().requires_grad_(k)
@@ -163,12 +168,8 @@ class _CaptureOnly(torch.autograd.Function):
                 [o for o, _ in used], picked, [g for _, g in used],
                 allow_unused=True))
         out = [next(grads) if k else None for k in need]
-        ctx.mark("capture_bwd>")
-        return (None, None, None, None, None, *out)
-
-
-def _no_mark(name: str) -> None:
-    pass
+        trace.mark("capture_bwd>")
+        return (None, None, None, None, *out)
 
 
 def sample_comat(
@@ -184,7 +185,6 @@ def sample_comat(
     params: Sequence[torch.Tensor],
     capture_primal: Optional[Callable] = None,
     capture_idx: Optional[Sequence[int]] = None,
-    mark: Optional[Callable[[str], None]] = None,
     pooled: Optional[torch.Tensor] = None,
     null_pooled: Optional[torch.Tensor] = None,
 ) -> SampleResult:
@@ -206,10 +206,11 @@ def sample_comat(
     captured at the segments `capture_idx` (A indices into the K
     segments, repeats allowed; default all K), each at its segment's entry
     latent and timestep, and returned in `captured`, each map stacked over
-    A. `mark(name)` is called after the replay ("replay") and around each
-    op's backward ("replay_bwd<", "replay_bwd>", "capture_bwd<",
-    "capture_bwd>")."""
-    mark = _no_mark if mark is None else mark
+    A. On the active clock (`comat_tpu_torch.trace`) the replay and the
+    captures are the spans "replay" and "capture", marked after each
+    replay segment ("replay_op>"), after the replay ("replay"), after each
+    capture op ("capture_op>") and around each op's backward
+    ("replay_bwd<", "replay_bwd>", "capture_bwd<", "capture_bwd>")."""
     S = len(coeffs.timesteps)
     eps_table, latents_traj = eps_table.detach(), latents_traj.detach()
     trained: List[int] = [int(i) for i in trained_idx]
@@ -217,31 +218,35 @@ def sample_comat(
     cap_conds = [context] + ([pooled] if pooled is not None else [])
     x = latents_traj[trained[0]]
     entries = []
-    for p in trained:
-        t = int(coeffs.timesteps[p])
-        entries.append(x)
-        eps = _CachedPrimalEps.apply(
-            diff_eps_model, t, mark, len(conds), x, eps_table[p], *conds, *params
-        )
-        x, _ = ddpm_step_from_coeffs(coeffs, p, x, eps, step_noise[p])
-        for pos in range(p + 1, min(p + interval, S)):
-            x, _ = ddpm_step_from_coeffs(coeffs, pos, x, eps_table[pos],
-                                         step_noise[pos])
-    # positions after the last segment, when interval * K < S
-    for pos in range(trained[-1] + interval, S):
-        x, _ = ddpm_step_from_coeffs(coeffs, pos, x, eps_table[pos], step_noise[pos])
-    mark("replay")
+    with trace.span("replay"):
+        for p in trained:
+            t = int(coeffs.timesteps[p])
+            entries.append(x)
+            eps = _CachedPrimalEps.apply(
+                diff_eps_model, t, len(conds), x, eps_table[p], *conds, *params
+            )
+            x, _ = ddpm_step_from_coeffs(coeffs, p, x, eps, step_noise[p])
+            for pos in range(p + 1, min(p + interval, S)):
+                x, _ = ddpm_step_from_coeffs(coeffs, pos, x, eps_table[pos],
+                                             step_noise[pos])
+            trace.mark("replay_op>")
+        # positions after the last segment, when interval * K < S
+        for pos in range(trained[-1] + interval, S):
+            x, _ = ddpm_step_from_coeffs(coeffs, pos, x, eps_table[pos], step_noise[pos])
+    trace.mark("replay")
 
     captured: Dict[str, List[torch.Tensor]] = {}
     if capture_primal is not None:
         idx = range(len(trained)) if capture_idx is None else capture_idx
         caps = []
-        for seg in (int(i) for i in idx):
-            layout: List[Tuple[str, int]] = []
-            flat = iter(_CaptureOnly.apply(
-                capture_primal, int(coeffs.timesteps[trained[seg]]), mark,
-                layout, len(cap_conds), entries[seg], *cap_conds, *params))
-            caps.append({key: [next(flat) for _ in range(n)] for key, n in layout})
+        with trace.span("capture"):
+            for seg in (int(i) for i in idx):
+                layout: List[Tuple[str, int]] = []
+                flat = iter(_CaptureOnly.apply(
+                    capture_primal, int(coeffs.timesteps[trained[seg]]), layout,
+                    len(cap_conds), entries[seg], *cap_conds, *params))
+                caps.append({key: [next(flat) for _ in range(n)] for key, n in layout})
+                trace.mark("capture_op>")
         if caps:
             captured = {key: [torch.stack([c[key][i] for c in caps])
                               for i in range(len(maps))]

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from comat_tpu_torch import trace
+
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
 CAPTION_PREFIX = "a photography of"
@@ -52,8 +54,10 @@ def blip_preprocess(image01: torch.Tensor, size: int = 384) -> torch.Tensor:
     ww = _resize_weights(W, size, image01.device)
     x = torch.einsum("oh,bhwc->bowc", wh, image01.float())
     x = torch.einsum("pw,bowc->bopc", ww, x)
-    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=x.device)
+    with trace.sync("blip.image_stats"):
+        mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=torch.float32, device=x.device)
+    with trace.sync("blip.image_stats"):
+        std = torch.tensor(CLIP_IMAGE_STD, dtype=torch.float32, device=x.device)
     return (x - mean) / std
 
 
@@ -96,8 +100,9 @@ def blip_caption_reward(
     device = image01.device
 
     def as_ids(a):
-        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
-                               device=device).long()
+        with trace.sync("blip.caption_ids"):
+            return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a,
+                                   device=device).long()
 
     pixel_values = blip_preprocess(image01, blip.cfg.image_size)
     loss = blip.caption_loss(pixel_values, as_ids(input_ids),

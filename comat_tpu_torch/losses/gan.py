@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.config import UNetConfig
 from comat_tpu_torch.models.lora import is_lora_path
 from comat_tpu_torch.models.pipeline import resolve_device
@@ -170,7 +171,9 @@ def gan_d_loss(disc: Discriminator, gen_latents: torch.Tensor,
                added_cond: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
     """Discriminator side: generated latents 0, ground-truth latents 1."""
     gen = gen_latents.detach()
-    lat = torch.cat([gen, gt_latents.to(gen.device, gen.dtype)], dim=0)
+    with trace.sync("gan.gt_latents"):
+        gt = gt_latents.to(gen.device, gen.dtype)
+    lat = torch.cat([gen, gt], dim=0)
     B = gen.shape[0]
     ctx2 = torch.cat([null_context, null_context], dim=0)
     ac2 = None if added_cond is None else {

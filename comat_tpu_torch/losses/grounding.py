@@ -29,6 +29,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from comat_tpu_torch import trace
+
 _F32_TINY = float(np.finfo(np.float32).tiny)    # smallest normal fp32
 _F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -61,7 +63,8 @@ def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
         weights / torch.where(total != 0, total, torch.ones_like(total)),
         torch.zeros_like(weights))
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(device)
+    with trace.sync("grounding.resize_weights"):
+        return torch.where(inside[None, :], weights, torch.zeros_like(weights)).to(device)
 
 
 def _resize_masks(masks: torch.Tensor, res: int) -> torch.Tensor:

@@ -33,11 +33,12 @@ samplers and the replay read from v to eps (JAX's `unet_apply`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.config import CLIPTextConfig, UNetConfig, VAEConfig
 from comat_tpu_torch.diffusion.guidance import make_cfg_eps_model
 from comat_tpu_torch.diffusion.sampler import (
@@ -279,7 +280,8 @@ class DiffusionPipeline:
     def _ids(self, ids) -> torch.Tensor:
         if not isinstance(ids, torch.Tensor):
             ids = torch.from_numpy(np.asarray(ids))
-        return ids.to(self.device).long()
+        with trace.sync("pipeline.ids"):
+            return ids.to(self.device).long()
 
     # ---- text ----
     def encode_prompt(self, input_ids, eos_positions=None,
@@ -419,7 +421,6 @@ class DiffusionPipeline:
         presampled: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         capture: bool = False,
         capture_idx: Optional[Sequence[int]] = None,
-        mark: Optional[Callable[[str], None]] = None,
         remat: Remat = False,
         pass1_int8: bool = False,
     ) -> Tuple[torch.Tensor, SampleResult]:
@@ -461,10 +462,12 @@ class DiffusionPipeline:
         capture forward: batch B at the segment's entry latent and
         timestep, the prompt context, no guidance.
 
-        `mark(name)` is called after pass 1 ("pass1"), after the replay
-        ("replay"), after the capture forwards ("pass2"), around the
-        backward of each replay and capture op (see `sample_comat`) and
-        when the decode's backward ends ("decode_bwd>")."""
+        On the active clock (`comat_tpu_torch.trace`) pass 1 and the
+        decode are the spans "pass1" and "decode", marked after pass 1
+        ("pass1"), after the replay ("replay"), after the capture forwards
+        ("pass2"), around the backward of each replay and capture op (see
+        `sample_comat`) and when the decode's backward ends
+        ("decode_bwd>")."""
         cfg = self.cfg
         enc, nenc, added, null_added = self._encode_pair(
             input_ids, null_ids, eos_positions, null_eos_positions, input_ids2,
@@ -481,7 +484,7 @@ class DiffusionPipeline:
         step_noise = step_noise.to(self.device, torch.float32)
         if presampled is None:
             unet = self._pass1_unet()
-            with pass1_w8a8(unet, pass1_int8):
+            with pass1_w8a8(unet, pass1_int8), trace.span("pass1"):
                 _, eps_table, traj = sample_inference(
                     self._pass1_eps_model(enc.context, nenc.context, guidance_scale,
                                           guidance_rescale, unet, added, null_added),
@@ -489,8 +492,7 @@ class DiffusionPipeline:
                 )
         else:
             eps_table, traj = presampled
-        if mark is not None:
-            mark("pass1")
+        trace.mark("pass1")
 
         guided = guidance_scale > 1.0
         # SDXL: the pooled embeds are the ops' inputs, the size ids constants
@@ -524,18 +526,19 @@ class DiffusionPipeline:
         result = sample_comat(
             diff_eps_model, coeffs, eps_table, traj, step_noise, trained_idx,
             num_inference_steps // K, enc.context, nenc.context if guided else None,
-            params, capture_primal=capture_primal, capture_idx=capture_idx, mark=mark,
+            params, capture_primal=capture_primal, capture_idx=capture_idx,
             pooled=pooled, null_pooled=null_pooled,
         )
         latents = result.latents
-        if mark is not None:
-            mark("pass2")
-            if latents.requires_grad:
-                # autograd runs this view's node right after the decode's
-                # backward: it marks that backward's end
-                latents = latents.view_as(latents)
-                latents.register_hook(lambda g: mark("decode_bwd>"))
-        return self.decode_image(latents, remat=bool(remat)), result
+        trace.mark("pass2")
+        if trace.current() is not None and latents.requires_grad:
+            # autograd runs this view's node right after the decode's
+            # backward: it marks that backward's end
+            latents = latents.view_as(latents)
+            latents.register_hook(lambda g: trace.mark("decode_bwd>"))
+        with trace.span("decode"):
+            image = self.decode_image(latents, remat=bool(remat))
+        return image, result
 
     @torch.no_grad()
     def presample(
@@ -553,14 +556,15 @@ class DiffusionPipeline:
         latents0: Optional[torch.Tensor] = None,
         step_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
-        mark: Optional[Callable[[str], None]] = None,
         pass1_int8: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Pass 1 alone, for callers that must see the image before the
         differentiable pass: returns (image, eps_table, latents_traj), the
         image unclamped; the tables go to `forward(presampled=...)` with the
-        same `step_noise`. Pass 1 runs as in `forward` (`pass1_int8` too);
-        `mark("pass1")` is called after it, before the decode."""
+        same `step_noise`. Pass 1 runs as in `forward` (`pass1_int8` too).
+        On the active clock pass 1 and the decode are the spans "pass1"
+        and "presample.decode", with the mark "presample_pass1" between
+        them."""
         enc, nenc, added, null_added = self._encode_pair(
             input_ids, null_ids, eos_positions, null_eos_positions, input_ids2,
             null_ids2)
@@ -575,15 +579,16 @@ class DiffusionPipeline:
             )
         if step_noise is not None:
             step_noise = step_noise.to(self.device, torch.float32)
-        with pass1_w8a8(unet, pass1_int8):
+        with pass1_w8a8(unet, pass1_int8), trace.span("pass1"):
             x, eps_table, traj = sample_inference(
                 eps_model,
                 make_sampler_coeffs(self.schedule, num_inference_steps, kind="ddpm"),
                 latents0.to(self.device), generator, step_noise=step_noise,
             )
-        if mark is not None:
-            mark("pass1")
-        return self.decode_image(x), eps_table, traj
+        trace.mark("presample_pass1")
+        with trace.span("presample.decode"):
+            image = self.decode_image(x)
+        return image, eps_table, traj
 
     # ---- inference ----
     @torch.no_grad()

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.config import UNetConfig
 from comat_tpu_torch.models import remat as rm
 from comat_tpu_torch.models.lora import LoRALinear
@@ -332,7 +333,8 @@ class UNet2DConditionModel(nn.Module):
         its maps through the checkpoint."""
         dt = self.cfg.dtype
         B = sample.shape[0]
-        t = torch.as_tensor(timesteps, device=sample.device)
+        with trace.sync("unet.timesteps"):
+            t = torch.as_tensor(timesteps, device=sample.device)
         if t.dim() == 0:
             t = t.expand(B)
         temb = self.time_embedding(

@@ -235,7 +235,7 @@ def calibrate_batchnorm_(model: nn.Module, image: torch.Tensor) -> None:
             h.remove()
 
 
-def _to_numpy(x) -> np.ndarray:
+def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
@@ -250,8 +250,8 @@ def decode_predictions(outs, protos, cfg: YoloSegConfig, conf_thresh: float = 0.
     results, gsam_interface.py:64-74). Outputs may be tensors or arrays."""
     nm, reg = cfg.num_masks, cfg.reg_max
     results = []
-    protos = _to_numpy(protos)
-    outs = [{k: _to_numpy(v) for k, v in o.items()} for o in outs]
+    protos = to_numpy(protos)
+    outs = [{k: to_numpy(v) for k, v in o.items()} for o in outs]
     B = protos.shape[0]
     for b in range(B):
         all_boxes, all_scores, all_mc = [], [], []

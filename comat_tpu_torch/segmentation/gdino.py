@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.ops.deformable_attention import ms_deformable_attention
 from comat_tpu_torch.segmentation.layers import (
     Conv2d,
@@ -337,8 +338,9 @@ class DeformableEncoderLayer(nn.Module):
     def forward(self, src, pos, ref_points, spatial_shapes):
         qsrc = src + pos.to(src.dtype)
         off, w = self.self_attn.offsets_and_weights(qsrc)
-        norms = torch.tensor([[wd, ht] for ht, wd in spatial_shapes], dtype=torch.float32,
-                             device=src.device)
+        with trace.sync("gdino.level_sizes"):
+            norms = torch.tensor([[wd, ht] for ht, wd in spatial_shapes],
+                                 dtype=torch.float32, device=src.device)
         locs = ref_points[:, :, None, None, None, :] + off / norms[None, None, None, :, None, :]
         attn = ms_deformable_attention(self.self_attn.value(src), spatial_shapes, locs, w)
         src = self.norm1(src + self.self_attn.output_proj(attn))
@@ -551,7 +553,9 @@ class GroundingDetector(nn.Module):
             ys, xs = torch.meshgrid((torch.arange(h, device=dev) + 0.5) / h,
                                     (torch.arange(w, device=dev) + 0.5) / w, indexing="ij")
             refs.append(torch.stack([xs.reshape(-1), ys.reshape(-1)], -1))
-        pos = torch.from_numpy(sine_pos_embed_2d(spatial_shapes, D // 2)).to(dev)
+        table = torch.from_numpy(sine_pos_embed_2d(spatial_shapes, D // 2))
+        with trace.sync("gdino.pos_embed"):
+            pos = table.to(dev)
         pos = (pos + tr.level_embed[lvl_idx])[None]
         ref_points = torch.cat(refs, 0)[None].expand(B, -1, -1).float()
 
@@ -559,7 +563,9 @@ class GroundingDetector(nn.Module):
         t = self.feat_map(self.bert(text_ids, text_self_mask.bool(), position_ids.long()))
 
         # feature enhancer
-        pos_text = torch.from_numpy(_sine_pos_1d(T, D)).to(dev)[None]
+        table = torch.from_numpy(_sine_pos_1d(T, D))
+        with trace.sync("gdino.pos_embed"):
+            pos_text = table.to(dev)[None]
         enc = tr.encoder
         for i in range(c.enc_layers):
             if c.fusion:

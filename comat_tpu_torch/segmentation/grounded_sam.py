@@ -22,12 +22,13 @@ or are drawn from `seed`; with drawn weights the masks are noise.
 
 from __future__ import annotations
 
-from typing import Callable, List, Mapping, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.models.pipeline import resolve_device
 from comat_tpu_torch.segmentation.fastsam import (
     YoloSegConfig,
@@ -35,6 +36,7 @@ from comat_tpu_torch.segmentation.fastsam import (
     box_prompt_index,
     calibrate_batchnorm_,
     decode_predictions,
+    to_numpy,
     upsample_mask,
 )
 from comat_tpu_torch.segmentation.gdino import (
@@ -74,8 +76,10 @@ def gdino_input(images01: torch.Tensor, size: Optional[int]) -> torch.Tensor:
     if size and tuple(x.shape[1:3]) != (size, size):
         x = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
                           align_corners=False, antialias=False).permute(0, 2, 3, 1)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    with trace.sync("segment.image_stats"):
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
+    with trace.sync("segment.image_stats"):
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
     return (x - mean) / std
 
 
@@ -175,9 +179,14 @@ class GroundedSAMSegmenter:
         """The two detectors on the device: ((boxes, token_logits), (outs,
         protos)), still on the device."""
         dev = self.device
-        cat = lambda i: torch.from_numpy(np.concatenate([r[i] for r in rows])).to(dev)  # noqa: E731
-        boxes, token_logits = self.gdino(gdino_input(images01, self.gdino_resize),
-                                         cat(1), cat(2), cat(3), cat(4))
+
+        def upload(i):
+            with trace.sync("segment.text_upload"):
+                return torch.from_numpy(np.concatenate([r[i] for r in rows])).to(dev)
+
+        image = gdino_input(images01, self.gdino_resize)
+        text = [upload(i) for i in range(1, 5)]
+        boxes, token_logits = self.gdino(image, *text)
         outs, protos = self.sam(images01.float())
         return (boxes, token_logits), (outs, protos)
 
@@ -209,23 +218,33 @@ class GroundedSAMSegmenter:
             result.append(masks)
         return result
 
-    def batch(self, images01, nouns_list: Sequence[Sequence[str]],
-              mark: Optional[Callable[[str], None]] = None) -> List[List[np.ndarray]]:
+    def batch(self, images01, nouns_list: Sequence[Sequence[str]]) -> List[List[np.ndarray]]:
         """Segment a batch with one GroundingDINO and one FastSAM call.
         images01 (B, H, W, 3) in [0, 1], a tensor (on any device; moved
         to the segmenter's) or an array. Returns per image one (H, W)
-        float32 0/1 mask per noun; an image without nouns gets none.
-        `mark("segment_device")` is called once the forwards are queued,
-        before their outputs cross to the host."""
+        float32 0/1 mask per noun; an image without nouns gets none. On the
+        active clock (`comat_tpu_torch.trace`) the forwards are the span
+        "segment.forwards", marked "segment_device" once they are queued,
+        before their outputs cross to the host; each copy of an output to
+        the host is a sync "segment.wait", and the numpy decode the span
+        "segment.decode"."""
         images01 = torch.as_tensor(images01).to(self.device)
         B, H, W, _ = images01.shape
         rows = self.text_rows(nouns_list, B)
-        (boxes, token_logits), (outs, protos) = self.forwards(images01, rows)
-        if mark is not None:
-            mark("segment_device")
-        proposals_all = decode_predictions(outs, protos, self.sam_cfg)
-        return self.decode_masks(rows, boxes.float().cpu().numpy(),
-                           token_logits.float().cpu().numpy(), proposals_all, H, W)
+        with trace.span("segment.forwards"):
+            (boxes, token_logits), (outs, protos) = self.forwards(images01, rows)
+        trace.mark("segment_device")
+
+        def fetch(x):
+            with trace.sync("segment.wait"):
+                return to_numpy(x)
+
+        protos = fetch(protos)
+        outs = [{k: fetch(v) for k, v in o.items()} for o in outs]
+        boxes, token_logits = fetch(boxes), fetch(token_logits)
+        with trace.span("segment.decode"):
+            proposals_all = decode_predictions(outs, protos, self.sam_cfg)
+            return self.decode_masks(rows, boxes, token_logits, proposals_all, H, W)
 
     def __call__(self, image01, nouns: Sequence[str]) -> List[np.ndarray]:
         """One image (H, W, 3): its masks, one per noun."""

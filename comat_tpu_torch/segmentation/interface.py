@@ -18,10 +18,12 @@ computes them under no_grad, attr_concen_utils/gsam_interface.py:54):
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
+
+from comat_tpu_torch import trace
 
 
 class SegmenterHolder:
@@ -64,15 +66,15 @@ class SegmenterHolder:
                 out[b, w] = m
         return out
 
-    def device_masks(self, image: torch.Tensor,
-                     mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+    def device_masks(self, image: torch.Tensor) -> torch.Tensor:
         """The masks of a generated image, on its device: image (B, H, W, 3)
         (unclamped; clipped to [0, 1] here) -> (B, max_words, H, W) uint8,
         as the JAX trainer feeds them to its step. A segmenter with `batch`
         gets the whole batch (B > 1) on the device; otherwise each image is
-        segmented alone. `mark("segment_device")` is called once the
-        segmenter's device work is queued; `mark("segmented")` once the
-        masks are back on the device."""
+        segmented alone. On the active clock (`comat_tpu_torch.trace`) it
+        marks "segment_device" once the segmenter's device work is queued
+        and "segmented" once the masks are back on the device; their
+        upload is the sync "segment.upload"."""
         B, H, W, _ = image.shape
         img = image.detach().float().clamp(0.0, 1.0)
         out = np.zeros((B, self.max_words, H, W), np.uint8)
@@ -80,18 +82,17 @@ class SegmenterHolder:
         batch_fn = getattr(self.segmenter, "batch", None)
         if batch_fn is not None and B > 1:
             all_masks = batch_fn(img, [nouns[b] if b < len(nouns) else []
-                                       for b in range(B)], mark=mark)
+                                       for b in range(B)])
         else:
-            if mark is not None:
-                mark("segment_device")
+            trace.mark("segment_device")
             all_masks = [self.segmenter(img[b], nouns[b]) if b < len(nouns) else []
                          for b in range(B)]
         for b in range(B):
             for w, m in enumerate(all_masks[b][: self.max_words]):
                 out[b, w] = m
-        masks = torch.from_numpy(out).to(image.device)
-        if mark is not None:
-            mark("segmented")
+        with trace.sync("segment.upload"):
+            masks = torch.from_numpy(out).to(image.device)
+        trace.mark("segmented")
         return masks
 
 

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.segmentation.layers import Conv2d, Dense, LayerNorm
 
 
@@ -82,7 +83,8 @@ class WindowAttention(nn.Module):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         split = lambda a: a.reshape(nW, N, self.heads, hd).transpose(1, 2)  # noqa: E731
         logits = torch.matmul(split(q).float(), split(k).float().transpose(-1, -2)) / hd ** 0.5
-        bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
+        with trace.sync("swin.position_index"):
+            bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         logits = logits + bias.reshape(N, N, self.heads).permute(2, 0, 1)[None]
         if mask is not None:     # (nW per image, N, N), additive
             n_img = mask.shape[0]
@@ -143,7 +145,8 @@ class SwinBlock(nn.Module):
                 cnt += 1
         win = _window_partition(torch.from_numpy(img)[None, :, :, None], w)[..., 0]
         diff = win[:, None, :] != win[:, :, None]
-        return torch.where(diff, -1e9, 0.0).to(device, torch.float32)
+        with trace.sync("swin.attn_mask"):
+            return torch.where(diff, -1e9, 0.0).to(device, torch.float32)
 
 
 class PatchEmbed(nn.Module):

@@ -197,7 +197,8 @@ def parse_args(argv=None):
                         "parser); parse_prompt consumes it verbatim")
     p.add_argument("--mesh_model_axis", type=int, default=1)
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="torch.profiler trace of steps 4-7 (chrome trace json)")
+                   help="torch.profiler trace of steps 4-7 (from 0) with the program's spans "
+                        "(trace.json) and its summary (profile_summary.json)")
     p.add_argument("--caption_model_path", type=str, default=None,
                    help="local snapshot dir for the frozen caption "
                         "reward model (Salesforce/blip-image-"

@@ -18,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.losses.grounding import comat_grounding_loss, dedup_draw_weights
 from comat_tpu_torch.segmentation.interface import SegmenterHolder
 from comat_tpu_torch.text.linguistics import extract_attribute_groups, pad_groups
@@ -26,7 +27,10 @@ from comat_tpu_torch.text.linguistics import extract_attribute_groups, pad_group
 def _tensor(x, device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.asarray(x))
-    return x.to(device)
+    if x.device.type != "cpu":      # made on the card (the split step's masks)
+        return x.to(device)
+    with trace.sync("attrcon.batch_fields"):
+        return x.to(device)
 
 
 def make_attrcon_extra_losses(pipeline, holder: SegmenterHolder, cfg):
@@ -37,8 +41,9 @@ def make_attrcon_extra_losses(pipeline, holder: SegmenterHolder, cfg):
 
     def extra(batch, image, result, draws):
         device = pipeline.device
-        weights = dedup_draw_weights(
-            torch.tensor(list(draws.attrcon_draws), device=device))
+        with trace.sync("attrcon.draws"):
+            draws_t = torch.tensor(list(draws.attrcon_draws), device=device)
+        weights = dedup_draw_weights(draws_t)
         token_loss, pixel_loss = comat_grounding_loss(
             result.captured, weights,
             _tensor(batch["seg_masks"], device).float(),

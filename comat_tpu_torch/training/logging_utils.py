@@ -4,12 +4,12 @@ The port's copy of the host side of comat_tpu/training/logging_utils.py:
 python logging to the console and `<output_dir>/log.txt`, a JSONL scalar
 stream `<output_dir>/metrics.jsonl` keyed as the reference logs
 (train_loss, step_loss, lr, the reward breakdown, G/D loss, token/pixel
-loss, reward_norm; training_script.py:667-706), validation images as PNG
-files under `<output_dir>/validation_images/`, and a wall-clock step
-timer. The PNGs are written with the standard library (`write_png`); a
-failed write raises. With a logging dir (the trainer's --report_to
-tensorboard, its default) every scalar and the validation images also go
-to a TensorBoard log under `<output_dir>/<logging_dir>`, through
+loss, reward_norm; training_script.py:667-706) and validation images as
+PNG files under `<output_dir>/validation_images/`. The PNGs are written
+with the standard library (`write_png`); a failed write raises. With a
+logging dir (the trainer's --report_to tensorboard, its default) every
+scalar and the validation images also go to a TensorBoard log under
+`<output_dir>/<logging_dir>`, through
 `torch.utils.tensorboard`, as JAX writes them; where that writer cannot be
 made (no tensorboard package), one warning names the reason and
 metrics.jsonl is kept. Under a process group every log line carries its
@@ -106,16 +106,3 @@ class MetricsWriter:
             self.f.close()
         if self.tb is not None:
             self.tb.close()
-
-
-class StepTimer:
-    """Wall-clock seconds between ticks (per-step time, images/sec)."""
-
-    def __init__(self):
-        self.t = None
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        dt = 0.0 if self.t is None else now - self.t
-        self.t = now
-        return dt

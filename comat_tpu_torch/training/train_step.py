@@ -44,12 +44,13 @@ reattached to the image as <sg(g * factor), cropped - sg(cropped)>.
 from __future__ import annotations
 
 import dataclasses
-import time
+import statistics
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.diffusion.schedulers import inference_timesteps
 from comat_tpu_torch.losses.caption_reward import (
     IGNORE_INDEX,
@@ -67,6 +68,7 @@ from comat_tpu_torch.parallel.mesh import (
     local_rows,
     sum_over_data,
 )
+from comat_tpu_torch.trace import PhaseClock
 from comat_tpu_torch.training.optim8bit import AdamW8bit
 
 
@@ -296,7 +298,9 @@ class ClippedAdamW:
             clip_norm = norm({n: m.grad for n, m in self.masters.items()})
         else:
             clip_norm = norm_before
-        if float(clip_norm) >= self.max_norm:
+        with trace.sync("clip_norm"):
+            clip = float(clip_norm) >= self.max_norm
+        if clip:
             for g in grads:
                 g.div_(clip_norm).mul_(self.max_norm)
         if self.lr_schedule is not None:
@@ -476,7 +480,9 @@ def sample_draws(cfg: TrainConfig, batch: int, latent_size: int,
     offset_range = cfg.resolution // 224
     n_attrcon = min(cfg.attrcon_train_steps, cfg.K) if cfg.attrcon else 0
     ints = torch.randint(0, 1 << 30, (3 + n_attrcon,), generator=generator,
-                         device=generator.device).tolist()
+                         device=generator.device)
+    with trace.sync("draws.tolist"):
+        ints = ints.tolist()
     return StepDraws(
         latents0.to(device), noise.to(device), ints[0] % (max_start(cfg) + 1),
         (ints[1] % (offset_range + 1), ints[2] % (offset_range + 1)),
@@ -490,67 +496,6 @@ def local_draws(draws: StepDraws, mesh: Mesh) -> StepDraws:
     are the whole batch's."""
     return draws._replace(latents0=local_rows(draws.latents0, mesh),
                           step_noise=local_rows(draws.step_noise, mesh, dim=1))
-
-
-class PhaseClock:
-    """Marks on the device's timeline (CUDA events; host clock on the
-    CPU), read after the step has synchronised.
-
-    A name may be marked more than once. `seconds(a, b)` spans the last
-    mark `a` to the last mark `b` (0 when either was not marked: a stage
-    the step did not run); `seconds(name)` sums the spans between the
-    marks `name<` and `name>` taken in pairs (the backward of each replay
-    op, for instance); `span()` runs from the first mark to the last.
-    `probe`, when given, is called at each mark (e.g. to read kernel
-    launch counters), and `counts` takes the differences of its readings
-    over the same spans."""
-
-    def __init__(self, device: torch.device,
-                 probe: Optional[Callable[[], Dict[str, int]]] = None):
-        self.cuda = device.type == "cuda"
-        self.probe = probe
-        self.marks: Dict[str, List[Tuple[object, Optional[Dict[str, int]]]]] = {}
-        self.stamps: List[object] = []      # every mark's stamp, in order
-
-    def mark(self, name: str) -> None:
-        if self.cuda:
-            stamp = torch.cuda.Event(enable_timing=True)
-            stamp.record()
-        else:
-            stamp = time.perf_counter()
-        reading = self.probe() if self.probe is not None else None
-        self.marks.setdefault(name, []).append((stamp, reading))
-        self.stamps.append(stamp)
-
-    def _pairs(self, a: str, b: Optional[str]):
-        if b is not None:
-            if a not in self.marks or b not in self.marks:
-                return []       # a stage this step did not run
-            return [(self.marks[a][-1], self.marks[b][-1])]
-        begins, ends = self.marks.get(a + "<", []), self.marks.get(a + ">", [])
-        if len(begins) != len(ends):
-            raise RuntimeError(f"span {a}: {len(begins)} begins, {len(ends)} ends")
-        return list(zip(begins, ends))
-
-    def seconds(self, a: str, b: Optional[str] = None) -> float:
-        total = 0.0
-        for (sa, _), (sb, _) in self._pairs(a, b):
-            total += sa.elapsed_time(sb) / 1e3 if self.cuda else sb - sa
-        return total
-
-    def span(self) -> float:
-        """Seconds from the clock's first mark to its last."""
-        if not self.stamps:
-            return 0.0
-        sa, sb = self.stamps[0], self.stamps[-1]
-        return sa.elapsed_time(sb) / 1e3 if self.cuda else sb - sa
-
-    def counts(self, a: str, b: Optional[str] = None) -> Dict[str, int]:
-        total: Dict[str, int] = {}
-        for (_, ra), (_, rb) in self._pairs(a, b):
-            for k in rb:
-                total[k] = total.get(k, 0) + rb[k] - ra[k]
-        return total
 
 
 # A step's segments on its clock: a pair of marks, or a span name (see
@@ -583,7 +528,11 @@ SEGMENTS: Dict[str, Tuple[str, Optional[str]]] = {
     "d_opt": ("d_allreduced", "end"),
 }
 
-# The seconds a train step reports, as sums of segments. s_pass1 is pass
+# The seconds a train step reports, as sums of segments. Each is stream
+# seconds, the elapsed time between two marks on the device's stream, so
+# the device's idle time between them is counted too: a phase whose
+# launches the host cannot queue fast enough reads as long as one bound by
+# its kernels (the leads below tell the two apart). s_pass1 is pass
 # 1's wherever it runs: in the step, or in the split step's presample;
 # s_presample is the rest of the presample (its no-grad VAE decode);
 # s_segment the segmentation, device forwards and host decode, and
@@ -606,6 +555,31 @@ PHASES = {
     "s_d_update": ("d_fwd", "d_bwd", "d_opt"),
 }
 
+# The marks whose leads (PhaseClock.leads_ms) a step reports: the end of
+# each of pass 1's guided UNet calls, in the step or its presample; the
+# end of each replay segment's and capture op's forward and of their
+# backward.
+PASS1_MARKS = ("unet>",)
+PASS2_MARKS = ("replay_op>", "capture_op>", "replay_bwd>", "capture_bwd>")
+
+
+def trace_outputs(clock: PhaseClock) -> Dict[str, float]:
+    """What a closed step's clock reports beside the phases: h_batch and
+    h_segment_decode, the host seconds of the spans "batch" (the trainer's
+    host batch) and "segment.decode" (Grounded-SAM's numpy decode);
+    n_syncs, the blocking reads the step passed; lead_pass1_ms and
+    lead_pass2_ms, the median lead of PASS1_MARKS and of PASS2_MARKS (0
+    where the step made none). A lead near 0 says the device waited on
+    the host there; a longer one, that the host ran ahead."""
+    def median(values):
+        return statistics.median(values) if values else 0.0
+
+    return {"h_batch": clock.host_seconds("batch"),
+            "h_segment_decode": clock.host_seconds("segment.decode"),
+            "n_syncs": float(clock.n_syncs),
+            "lead_pass1_ms": median(clock.leads_ms(*PASS1_MARKS)),
+            "lead_pass2_ms": median(clock.leads_ms(*PASS2_MARKS))}
+
 
 def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
                  extra_losses: Optional[Callable] = None,
@@ -613,7 +587,7 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
                  mesh: Optional[Mesh] = None):
     """The differentiated quantity of a step.
 
-    loss_fn(batch, draws, clock=None) -> (loss, (metrics, latents)).
+    loss_fn(batch, draws) -> (loss, (metrics, latents)).
     `batch` holds input_ids, null_ids, eos_positions (optional),
     caption_ids, caption_mask and caption_labels (numpy or tensors);
     `draws` a StepDraws; with SDXL also input_ids2 and null_ids2, the
@@ -668,18 +642,19 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             return img_grad.float().norm()
         return sum_over_data(img_grad.float().square().sum(), mesh).sqrt()
 
-    def loss_fn(batch, draws: StepDraws, clock: Optional[PhaseClock] = None):
-        mark = clock.mark if clock is not None else (lambda name: None)
+    def loss_fn(batch, draws: StepDraws):
+        # the marks go to the active clock (comat_tpu_torch.trace), if any
+        traced = trace.current() is not None
 
         def hook(tensor, name):
             """Mark `name` when autograd runs the node that made `tensor`,
             which it does in the reverse order of the nodes' creation
             among those whose gradients are ready. A view made just
             before a stage's first op marks that stage's end."""
-            if clock is not None and tensor.requires_grad:
-                tensor.register_hook(lambda g: mark(name))
+            if traced and tensor.requires_grad:
+                tensor.register_hook(lambda g: trace.mark(name))
 
-        mark("start")
+        trace.mark("start")
         trained_idx = sample_trained_idx(cfg, draws.start)
         presampled = None
         if "eps_table" in batch:     # the split step: pass 1 ran in the presample
@@ -693,69 +668,70 @@ def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
             input_ids2=batch.get("input_ids2"), null_ids2=batch.get("null_ids2"),
             train_text_encoder=cfg.train_text_encoder,
             latents0=draws.latents0, step_noise=draws.step_noise,
-            capture=cfg.attrcon, capture_idx=draws.attrcon_draws, mark=mark,
+            capture=cfg.attrcon, capture_idx=draws.attrcon_draws,
             remat=cfg.remat_min_res if cfg.remat_min_res else cfg.gradient_checkpointing,
             presampled=presampled, pass1_int8=cfg.pass1_int8,
         )
-        mark("decoded")
+        trace.mark("decoded")
         hook(image, "decode_bwd<")    # "decode_bwd>": see pipeline.forward
 
-        offset_range = cfg.resolution // 224
-        cropped = crop_jitter(image, *draws.crop, cfg.resolution - offset_range)
-        leaf = cropped.detach().requires_grad_()
-        count = scored_tokens(batch)
-        with torch.enable_grad():
-            closs = caption_loss_of_image(leaf, batch, count)
-            (img_grad,) = torch.autograd.grad(closs, leaf)
-        closs = closs.detach()
-        reward_norm = image_grad_norm(img_grad)
-        factor = (1e4 / reward_norm.clamp_min(1e-12)) if cfg.norm_grad else 1.0
-        loss = closs + ((img_grad * factor).detach()
-                        * (cropped - cropped.detach())).sum()
-        reward = -closs / cfg.reward_weight
-        mark("reward")
-        metrics = {
-            "reward_blip": reward,
-            "reward_total": cfg.reward_weight * reward,
-            "reward_norm": reward_norm,
-        }
+        with trace.span("losses"):
+            offset_range = cfg.resolution // 224
+            cropped = crop_jitter(image, *draws.crop, cfg.resolution - offset_range)
+            leaf = cropped.detach().requires_grad_()
+            count = scored_tokens(batch)
+            with torch.enable_grad():
+                closs = caption_loss_of_image(leaf, batch, count)
+                (img_grad,) = torch.autograd.grad(closs, leaf)
+            closs = closs.detach()
+            reward_norm = image_grad_norm(img_grad)
+            factor = (1e4 / reward_norm.clamp_min(1e-12)) if cfg.norm_grad else 1.0
+            loss = closs + ((img_grad * factor).detach()
+                            * (cropped - cropped.detach())).sum()
+            reward = -closs / cfg.reward_weight
+            trace.mark("reward")
+            metrics = {
+                "reward_blip": reward,
+                "reward_total": cfg.reward_weight * reward,
+                "reward_norm": reward_norm,
+            }
 
-        if disc is not None:
-            null_ctx, null_added = null_ctx_for_d(
-                batch, condition=disc.gan_cfg.condition_discriminator)
-            lat_d = result.latents.view_as(result.latents)
-            hook(lat_d, "gan_bwd>")
-            g_loss = gan_g_loss(disc, lat_d, t_final, null_ctx, null_added)
-            if share is not None:
-                g_loss = g_loss * share
-            hook(g_loss, "gan_bwd<")
-            loss = loss + cfg.gan_loss_weight * g_loss
-            metrics["G_loss"] = g_loss.detach()
-        mark("gan_g")
+            if disc is not None:
+                null_ctx, null_added = null_ctx_for_d(
+                    batch, condition=disc.gan_cfg.condition_discriminator)
+                lat_d = result.latents.view_as(result.latents)
+                hook(lat_d, "gan_bwd>")
+                g_loss = gan_g_loss(disc, lat_d, t_final, null_ctx, null_added)
+                if share is not None:
+                    g_loss = g_loss * share
+                hook(g_loss, "gan_bwd<")
+                loss = loss + cfg.gan_loss_weight * g_loss
+                metrics["G_loss"] = g_loss.detach()
+            trace.mark("gan_g")
 
-        if extra_losses is not None:
-            if clock is not None:
-                views = {k: [m.view_as(m) for m in v]
-                         for k, v in result.captured.items()}
-                maps = [m for v in views.values() for m in v if m.requires_grad]
-                left = [len(maps)]
+            if extra_losses is not None:
+                if traced:
+                    views = {k: [m.view_as(m) for m in v]
+                             for k, v in result.captured.items()}
+                    maps = [m for v in views.values() for m in v if m.requires_grad]
+                    left = [len(maps)]
 
-                def last_map(g):    # the grounding backward ends at the last map
-                    left[0] -= 1
-                    if left[0] == 0:
-                        mark("grounding_bwd>")
+                    def last_map(g):    # the grounding backward ends at the last map
+                        left[0] -= 1
+                        if left[0] == 0:
+                            trace.mark("grounding_bwd>")
 
-                for m in maps:
-                    m.register_hook(last_map)
-                result = result._replace(captured=views)
-            add, extra_metrics = extra_losses(batch, image, result, draws)
-            if share is not None:
-                add = add * share
-                extra_metrics = {k: v * share for k, v in extra_metrics.items()}
-            hook(add, "grounding_bwd<")
-            loss = loss + add
-            metrics.update(extra_metrics)
-        mark("losses")
+                    for m in maps:
+                        m.register_hook(last_map)
+                    result = result._replace(captured=views)
+                add, extra_metrics = extra_losses(batch, image, result, draws)
+                if share is not None:
+                    add = add * share
+                    extra_metrics = {k: v * share for k, v in extra_metrics.items()}
+                hook(add, "grounding_bwd<")
+                loss = loss + add
+                metrics.update(extra_metrics)
+            trace.mark("losses")
         metrics["step_loss"] = loss.detach()
         return loss, (metrics, result.latents)
 
@@ -782,7 +758,8 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     metrics (Python floats): reward_blip, reward_total, reward_norm,
     step_loss, grad_norm (before the clip), G_loss and D_loss with the
     GAN, token_loss and pixel_loss with attribute concentration, and the
-    seconds of the step's phases on its device (`PHASES`): s_pass1
+    stream seconds of the step's phases (`PHASES`: the time between their
+    marks on the device's stream, its idle time included): s_pass1
     (encode and pass 1, here or in a presample on the same clock),
     s_presample and s_segment (a split step's, see `make_presample`;
     0 otherwise), s_pass2 (the replay and the capture, forward and
@@ -790,11 +767,16 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     backward), s_reward (crop, BLIP forward and backward), s_gan_g (D's
     forward and backward for the G loss), s_grounding (the grounding
     losses, forward and backward), s_optimizer, s_d_update (D's loss,
-    backward and optimizer), s_step (the clock's first mark to its last).
+    backward and optimizer), s_step (the clock's first mark to its last);
+    and what the clock traced (`trace_outputs`): h_batch,
+    h_segment_decode, n_syncs, lead_pass1_ms, lead_pass2_ms.
     A batch holding `eps_table` and `latents_traj` (a presample's) skips
     pass 1 and replays from them. `clock`: a PhaseClock to mark the
     step on (one is made without it), for a caller that reads more of
-    it, e.g. launch counts by segment through its probe.
+    it, e.g. launch counts by segment through its probe. The step is the
+    clock's active one (`PhaseClock.active`) and takes its spans and syncs
+    on it; it ends with `clock.close()`, the step's one wait for the
+    device, before the metrics are read.
 
     `mesh` (parallel.mesh): data parallelism over its data group, with the
     batch this data index's rows of the global batch (the model group's
@@ -820,65 +802,78 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     def train_step(state: TrainState, batch, draws: Optional[StepDraws] = None,
                    generator: Optional[torch.Generator] = None,
                    clock: Optional[PhaseClock] = None):
-        if draws is None:
-            n = len(batch["input_ids"]) * (mesh.data if mesh is not None else 1)
-            draws = sample_draws(cfg, n, pipeline.cfg.latent_size, generator,
-                                 pipeline.device)
-        if mesh is not None:
-            draws = local_draws(draws, mesh)
         clock = PhaseClock(pipeline.device) if clock is None else clock
-        reduced = [0]
-
-        def reduce_then_mark(name):
-            def reduce(grads):
-                reduced[0] += all_reduce_grads(grads, mesh)
-                clock.mark(name)
-            return reduce
-
-        state.optimizer.zero_grad()
-        loss, (metrics, gen_latents) = loss_fn(batch, draws, clock)
-        loss.backward()
-        clock.mark("backward")
-        if mesh is None:
-            clock.mark("allreduced")
-            g_norm = state.optimizer.step()
-        else:
-            g_norm = state.optimizer.step(reduce_then_mark("allreduced"), norm)
-        clock.mark("optimizer")
-        if disc is not None and d_optimizer is not None:
-            null_ctx, null_added = null_ctx_for_d(batch)
-            gt = batch["gt_latents"]
-            if not isinstance(gt, torch.Tensor):
-                gt = torch.from_numpy(np.asarray(gt))
-            d_optimizer.zero_grad()
-            d_loss = gan_d_loss(disc, gen_latents, gt, t_final, null_ctx, null_added)
+        with clock.active(), clock.span("train_step"):
+            if draws is None:
+                n = len(batch["input_ids"]) * (mesh.data if mesh is not None else 1)
+                with clock.span("draws"):
+                    draws = sample_draws(cfg, n, pipeline.cfg.latent_size, generator,
+                                         pipeline.device)
             if mesh is not None:
-                d_loss = d_loss * (1.0 / mesh.data)
-            clock.mark("d_forward")
-            d_loss.backward()
-            clock.mark("d_backward")
-            if mesh is None:
-                clock.mark("d_allreduced")
-                d_optimizer.step()
+                draws = local_draws(draws, mesh)
+            reduced = [0]
+
+            def reduce_then_mark(name):
+                def reduce(grads):
+                    reduced[0] += all_reduce_grads(grads, mesh)
+                    clock.mark(name)
+                return reduce
+
+            state.optimizer.zero_grad()
+            loss, (metrics, gen_latents) = loss_fn(batch, draws)
+            with clock.span("backward"):
+                loss.backward()
+            clock.mark("backward")
+            with clock.span("optimizer"):
+                if mesh is None:
+                    clock.mark("allreduced")
+                    g_norm = state.optimizer.step()
+                else:
+                    g_norm = state.optimizer.step(reduce_then_mark("allreduced"), norm)
+            clock.mark("optimizer")
+            if disc is not None and d_optimizer is not None:
+                with clock.span("d_update"):
+                    null_ctx, null_added = null_ctx_for_d(batch)
+                    gt = batch["gt_latents"]
+                    if not isinstance(gt, torch.Tensor):
+                        gt = torch.from_numpy(np.asarray(gt))
+                    d_optimizer.zero_grad()
+                    d_loss = gan_d_loss(disc, gen_latents, gt, t_final, null_ctx,
+                                        null_added)
+                    if mesh is not None:
+                        d_loss = d_loss * (1.0 / mesh.data)
+                    clock.mark("d_forward")
+                    d_loss.backward()
+                    clock.mark("d_backward")
+                    if mesh is None:
+                        clock.mark("d_allreduced")
+                        d_optimizer.step()
+                    else:
+                        d_optimizer.step(reduce_then_mark("d_allreduced"))
+                    metrics["D_loss"] = d_loss.detach()
             else:
-                d_optimizer.step(reduce_then_mark("d_allreduced"))
-            metrics["D_loss"] = d_loss.detach()
-        else:
-            clock.mark("d_forward")
-            clock.mark("d_backward")
-        clock.mark("end")
-        if mesh is not None:
-            norm_metric = metrics.pop("reward_norm")
-            metrics = gather_metrics(metrics, mesh)
-            metrics["reward_norm"] = norm_metric
-        out = {k: float(v) for k, v in metrics.items()}
-        out["grad_norm"] = float(g_norm)
-        if mesh is not None:
-            out["allreduce_bytes"] = float(reduced[0])
-        seg = {name: clock.seconds(*marks) for name, marks in SEGMENTS.items()}
-        for name, parts in PHASES.items():
-            out[name] = sum(seg[p] for p in parts)
-        out["s_step"] = clock.span()
+                clock.mark("d_forward")
+                clock.mark("d_backward")
+            clock.mark("end")
+            if mesh is not None:
+                norm_metric = metrics.pop("reward_norm")
+                metrics = gather_metrics(metrics, mesh)
+                metrics["reward_norm"] = norm_metric
+            # the step's one wait for the device; the reads after it find
+            # their values computed
+            clock.close()
+            with clock.span("metrics"):
+                out = {}
+                for k, v in [*metrics.items(), ("grad_norm", g_norm)]:
+                    with clock.sync("metrics.read"):
+                        out[k] = float(v)
+                if mesh is not None:
+                    out["allreduce_bytes"] = float(reduced[0])
+                seg = {name: clock.seconds(*marks) for name, marks in SEGMENTS.items()}
+                for name, parts in PHASES.items():
+                    out[name] = sum(seg[p] for p in parts)
+                out["s_step"] = clock.span_seconds()
+                out.update(trace_outputs(clock))
         return TrainState(state.step + 1, state.trainable, state.optimizer), out
 
     return train_step
@@ -897,22 +892,24 @@ def make_presample(pipeline: DiffusionPipeline, cfg: TrainConfig):
     replays from the tables instead of sampling again, so the 50 pass-1
     UNet calls are not paid twice. The draws' latents and noise table are
     the step's own, so the replayed trajectory is the presampled one
-    exactly. On `clock` it marks "presample", "presample_pass1" and
-    "presampled"."""
+    exactly. On `clock` (one is made without it) it marks "presample",
+    "presample_pass1" and "presampled", and takes the span "presample"
+    with pass 1's spans inside it."""
 
     def presample(batch, draws: StepDraws, clock: Optional[PhaseClock] = None):
-        mark = clock.mark if clock is not None else (lambda name: None)
-        mark("presample")
-        image, eps_table, traj = pipeline.presample(
-            batch["input_ids"], batch["null_ids"],
-            num_inference_steps=cfg.total_step, guidance_scale=cfg.guidance_scale,
-            guidance_rescale=cfg.guidance_rescale,
-            eos_positions=batch.get("eos_positions"),
-            input_ids2=batch.get("input_ids2"), null_ids2=batch.get("null_ids2"),
-            latents0=draws.latents0, step_noise=draws.step_noise,
-            mark=lambda name: mark("presample_" + name), pass1_int8=cfg.pass1_int8,
-        )
-        mark("presampled")
+        clock = PhaseClock(pipeline.device) if clock is None else clock
+        with clock.active(), clock.span("presample"):
+            clock.mark("presample")
+            image, eps_table, traj = pipeline.presample(
+                batch["input_ids"], batch["null_ids"],
+                num_inference_steps=cfg.total_step, guidance_scale=cfg.guidance_scale,
+                guidance_rescale=cfg.guidance_rescale,
+                eos_positions=batch.get("eos_positions"),
+                input_ids2=batch.get("input_ids2"), null_ids2=batch.get("null_ids2"),
+                latents0=draws.latents0, step_noise=draws.step_noise,
+                pass1_int8=cfg.pass1_int8,
+            )
+            clock.mark("presampled")
         return image, eps_table, traj
 
     return presample

@@ -126,7 +126,8 @@ from comat_tpu_torch.training.data import (
     load_prompts,
     read_latent_index,
 )
-from comat_tpu_torch.training.logging_utils import MetricsWriter, StepTimer, set_logger
+from comat_tpu_torch.training.logging_utils import MetricsWriter, set_logger
+from comat_tpu_torch.training.profile import write_profile
 from comat_tpu_torch.training.train_step import (
     SEGMENTS,
     PhaseClock,
@@ -419,9 +420,9 @@ class Trainer:
             args.output_dir,
             args.logging_dir if args.report_to in ("tensorboard", "all") else None,
             main=self.rank == 0)
-        self.timer = StepTimer()
         self._pending_metrics = None
         self._profiler = None
+        self._profiled: List[PhaseClock] = []   # the profiled steps' clocks
         self._step_times = []
         # (step, seconds) of each validation, its images fetched included
         self.validation_times = []
@@ -626,50 +627,61 @@ class Trainer:
         """One step of the loop on `prompts` (a split step where the
         segmenter needs the image): the batch, its draws, the step, the
         launch counts and the metrics, logged one step late. Returns the
-        step's metrics."""
+        step's metrics, with `h_step`, the host seconds of the whole call
+        (its span "step"), beside `train_step`'s. The step's clock is
+        active throughout (`comat_tpu_torch.trace`): its spans are "step",
+        "batch", "draws", "presample", "segment", "train_step" and
+        "finish", with the layers' own inside them."""
         args = self.args
         if args.batch_repeat > 1:
             prompts = list(prompts) * args.batch_repeat
         clock = PhaseClock(self.device, probe=self.probe)
-        batch = self._batch(prompts)
-        self.timer.tick()
-        draws = None
-        if self.presample is not None:
-            # the split step (JAX trainer.py:785-798): the step's
-            # draws, taken from the generator as the step takes them (the
-            # global batch's under a mesh; the presample takes its rows)
-            draws = sample_draws(self.tcfg, len(prompts) * self.data_groups,
-                                 self.pcfg.latent_size, self.generator, self.device)
-            mine = draws if self.mesh is None else local_draws(draws, self.mesh)
-            image, eps_table, traj = self.presample(batch, mine, clock)
-            batch["seg_masks"] = self._segment(image, clock)
-            batch["eps_table"], batch["latents_traj"] = eps_table, traj
-        # the step returns host floats, so it has synchronised
-        self.state, m = self.train_step(self.state, batch, draws=draws,
-                                        generator=self.generator, clock=clock)
-        if self.mesh is not None:
-            # a signal may reach the ranks at different steps: all stop after
-            # the same one, or one would wait forever in a collective
-            self._stop_requested = mesh_lib.any_rank(self._stop_requested, self.mesh,
-                                                     self.device)
-        dt = self.timer.tick()
-        self.global_step += 1
-        if self.probe is not None:
-            self._add_counts(clock)
-        self._profile_step()
-        self._flush_pending_metrics()
-        self._pending_metrics = (self.global_step, m, len(prompts), dt)
+        with clock.active(), clock.span("step"):
+            with clock.span("batch"):
+                batch = self._batch(prompts)
+            draws = None
+            if self.presample is not None:
+                # the split step (JAX trainer.py:785-798): the step's
+                # draws, taken from the generator as the step takes them (the
+                # global batch's under a mesh; the presample takes its rows)
+                with clock.span("draws"):
+                    draws = sample_draws(self.tcfg, len(prompts) * self.data_groups,
+                                         self.pcfg.latent_size, self.generator,
+                                         self.device)
+                mine = draws if self.mesh is None else local_draws(draws, self.mesh)
+                image, eps_table, traj = self.presample(batch, mine, clock)
+                with clock.span("segment"):
+                    batch["seg_masks"] = self._segment(image)
+                batch["eps_table"], batch["latents_traj"] = eps_table, traj
+            # the step closes the clock: it has synchronised when it returns
+            self.state, m = self.train_step(self.state, batch, draws=draws,
+                                            generator=self.generator, clock=clock)
+            with clock.span("finish"):
+                if self.mesh is not None:
+                    # a signal may reach the ranks at different steps: all stop
+                    # after the same one, or one would wait forever in a collective
+                    with clock.sync("stop_flag"):
+                        self._stop_requested = mesh_lib.any_rank(
+                            self._stop_requested, self.mesh, self.device)
+                self.global_step += 1
+                if self.probe is not None:
+                    self._add_counts(clock)
+                self._flush_pending_metrics()
+        m["n_syncs"] = float(clock.n_syncs)
+        m["h_step"] = clock.host_seconds("step")
+        self._profile_step(clock)
+        self._pending_metrics = (self.global_step, m, len(prompts))
         return m
 
-    def _segment(self, image: torch.Tensor, clock: PhaseClock) -> torch.Tensor:
+    def _segment(self, image: torch.Tensor) -> torch.Tensor:
         """The masks of this rank's presampled images: the first rank of a
         model group segments, the others take its masks, so that replicas
         cannot disagree."""
         mesh = self.mesh
         if mesh is None or mesh.model == 1:
-            return self.seg_holder.device_masks(image, mark=clock.mark)
+            return self.seg_holder.device_masks(image)
         if mesh.model_index == 0:
-            masks = self.seg_holder.device_masks(image, mark=clock.mark)
+            masks = self.seg_holder.device_masks(image)
         else:
             B, H, W, _ = image.shape
             masks = torch.empty((B, self.seg_holder.max_words, H, W), dtype=torch.uint8,
@@ -719,35 +731,39 @@ class Trainer:
             for k, n in clock.counts(*marks).items():
                 acc[k] = acc.get(k, 0) + n
 
-    def _profile_step(self) -> None:
-        """--profile_dir: a torch.profiler trace of steps 4-7, written as
-        `<profile_dir>/trace.json` (chrome trace)."""
+    def _profile_step(self, clock: PhaseClock) -> None:
+        """--profile_dir: a torch.profiler trace of steps 4-7, counted from
+        0 (metrics.jsonl's 5-8; the device's activity on a card, the
+        host's on the CPU), written with the steps' spans as
+        `<profile_dir>/trace.json` (chrome trace) and reduced to
+        `<profile_dir>/profile_summary.json` (`training.profile`)."""
         if not self.args.profile_dir:
             return
+        if self._profiler is not None:
+            self._profiled.append(clock)
         if self.global_step == 4 and self._profiler is None:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._profiler = torch.profiler.profile(activities=acts)
+            act = torch.profiler.ProfilerActivity
+            self._profiler = torch.profiler.profile(
+                activities=[act.CUDA if self.device.type == "cuda" else act.CPU])
             self._profiler.start()
         elif self.global_step == 8 and self._profiler is not None:
             self._profiler.stop()
-            os.makedirs(self.args.profile_dir, exist_ok=True)
-            path = os.path.join(self.args.profile_dir, "trace.json")
-            self._profiler.export_chrome_trace(path)
-            self._profiler = None
-            self.logger.info("profile written to %s", path)
+            paths = write_profile(self._profiler, self._profiled, self.args.profile_dir)
+            self._profiler, self._profiled = None, []
+            self.logger.info("profile written to %s and %s", *paths)
 
     def _flush_pending_metrics(self) -> None:
         """Log the previous step's metrics (one step late, as JAX logs
         them) and feed the straggler watchdog. `sec_per_step` is the
-        step's own wall time; JAX's is the time between two logging calls,
-        which in the port would be the next step's."""
+        step's own wall time, its host span "step" (`h_step`: the batch,
+        the step and its logging); JAX's is the time between two logging
+        calls, which in the port would be the next step's."""
         if self._pending_metrics is None:
             return
-        pstep, pm, pbs, dt = self._pending_metrics
+        pstep, pm, pbs = self._pending_metrics
         self._pending_metrics = None
         host_m = dict(pm)
+        dt = pm["h_step"]
         # the reference's per-step keys (training_script.py:667-703); lr
         # as JAX logs it, the schedule at the step count after the update
         host_m["train_loss"] = host_m.get("step_loss", 0.0)

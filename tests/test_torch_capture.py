@@ -191,8 +191,8 @@ def test_capture_only_vjp_matches_jax(case):
         return pipe.unet_apply(lat, t, context, capture=True)[1]
 
     layout = []
-    outs = tsampler._CaptureOnly.apply(capture_primal, T, lambda name: None, layout,
-                                       1, x, ctx, *trainable.values())
+    outs = tsampler._CaptureOnly.apply(capture_primal, T, layout, 1, x, ctx,
+                                       *trainable.values())
     flat_want = [m for k, _ in layout for m in case["maps"][k]]
     flat_cot = [torch.tensor(c) for k, _ in layout for c in case["cot"][k]]
     assert sorted(k for k, _ in layout) == sorted(case["maps"])

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.training import checkpoints as tckpt
 from torch_dist import free_port, run_ranks, tiny_env
 
@@ -209,10 +210,9 @@ class BandSegmenter:
         m[:r] = 1.0
         return [m for _ in nouns]
 
-    def batch(self, images01, nouns_list, mark=None):
+    def batch(self, images01, nouns_list):
         self.calls += 1
-        if mark is not None:
-            mark("segment_device")
+        trace.mark("segment_device")
         return [self(img, nouns) for img, nouns in zip(images01, nouns_list)]
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from comat_tpu_torch import trace
 from comat_tpu_torch.config import BLIPConfig
 from comat_tpu_torch.models.blip import make_blip
 from comat_tpu_torch.models.pipeline import DiffusionPipeline, make_pipeline_config
@@ -60,10 +61,9 @@ class BandSegmenter:
         m[:r] = 1.0
         return [m for _ in nouns]
 
-    def batch(self, images01, nouns_list, mark=None):
+    def batch(self, images01, nouns_list):
         self.calls.append((images01.clone(), [list(n) for n in nouns_list]))
-        if mark is not None:
-            mark("segment_device")
+        trace.mark("segment_device")
         return [self(img, nouns) for img, nouns in zip(images01, nouns_list)]
 
 
@@ -105,7 +105,8 @@ def test_split_step_equals_the_unsplit_step_given_the_same_masks(tiny):
     assert "seg_masks" not in batch            # image-dependent: none at batch time
     clock = tts.PhaseClock(torch.device("cpu"))
     image, eps_table, traj = tts.make_presample(pipe, tcfg)(batch, draws, clock)
-    masks = holder.device_masks(image, mark=clock.mark)
+    with clock.active():
+        masks = holder.device_masks(image)
     assert image.shape == (2, RES, RES, 3)
     assert masks.dtype == torch.uint8 and masks.shape == (2, holder.max_words, RES, RES)
     # the segmenter saw the presample's image, clipped to [0, 1], in one call

@@ -59,6 +59,7 @@ from comat_tpu_torch.models import pipeline as tpipe
 from comat_tpu_torch.models import quant as tquant
 from comat_tpu_torch.ops import quant as oq
 from comat_tpu_torch.text.tokenizer import HashTokenizer
+from comat_tpu_torch.trace import PhaseClock
 from comat_tpu_torch.training import arguments as targs
 from comat_tpu_torch.training import train_step as tts
 from comat_tpu_torch.training.trainer import Trainer
@@ -297,19 +298,24 @@ def test_replay_capture_and_d_never_run_int8(int8_calls):
 
     before = outputs()
     assert int8_calls["n"] == 0
-    marks = []
-    image, result = pipe.forward(
-        enc["input_ids"], null["input_ids"], [0, 2], num_inference_steps=STEPS, K=2,
-        eos_positions=enc["eos_positions"], latents0=lat, step_noise=noise,
-        capture=True, capture_idx=[1], remat=True, pass1_int8=True,
-        mark=lambda name: marks.append((name, int8_calls["n"])))
-    pass1 = dict(marks)["pass1"]
-    assert pass1 == STEPS * len(tquant.quantize_unet(pipe.unet))
-    maps = [m for v in result.captured.values() for m in v]
-    assert maps
-    loss = image.mean() + sum(m.float().mean() for m in maps)
-    loss = loss + disc.logits(result.latents, t, ctx).mean()
-    loss.backward()
+    # each mark of the forward and its backward reads the int8 calls so far
+    clock = PhaseClock(torch.device("cpu"), probe=lambda: dict(int8_calls))
+    with clock.active():
+        image, result = pipe.forward(
+            enc["input_ids"], null["input_ids"], [0, 2], num_inference_steps=STEPS, K=2,
+            eos_positions=enc["eos_positions"], latents0=lat, step_noise=noise,
+            capture=True, capture_idx=[1], remat=True, pass1_int8=True)
+        pass1 = clock.marks["pass1"][-1][1]["n"]
+        assert pass1 == STEPS * len(tquant.quantize_unet(pipe.unet))
+        maps = [m for v in result.captured.values() for m in v]
+        assert maps
+        loss = image.mean() + sum(m.float().mean() for m in maps)
+        loss = loss + disc.logits(result.latents, t, ctx).mean()
+        loss.backward()
+    # after pass 1 (whose guided calls mark "unet>"), no int8 call
+    marks = [(name, reading["n"]) for name, entries in clock.marks.items()
+             if name != "unet>" for _, reading, _ in entries]
+    assert {"pass1", "replay", "pass2", "replay_bwd>", "capture_bwd>"} <= dict(marks).keys()
     assert all(n == pass1 for _, n in marks), marks
     assert int8_calls["n"] == pass1
     grads = [p.grad for p in pipe.unet.parameters() if p.requires_grad]

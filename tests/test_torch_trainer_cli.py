@@ -341,6 +341,13 @@ def test_profile_dir_writes_a_trace_of_steps_4_to_7(tmp_path):
           "--max_train_steps", "8", "--profile_dir", str(tmp_path / "trace")])
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the program's spans of the four profiled steps, on the trace's clock
+    spans = [e for e in trace["traceEvents"] if e.get("cat") in ("span", "sync")]
+    assert [e["name"] for e in spans].count("step") == 4
+    assert {"batch", "train_step", "pass1", "unet", "close"} <= {e["name"] for e in spans}
+    summary = json.loads((tmp_path / "trace" / "profile_summary.json").read_text())
+    assert summary["steps"] == 4 and summary["spans"]["step"]["count"] == 4
+    assert summary["spans"]["train_step"]["host_s"] > 0
     steps = [json.loads(line)["step"]
              for line in (tmp_path / "out" / "metrics.jsonl").read_text().splitlines()]
     assert steps == list(range(1, 9))

@@ -26,6 +26,40 @@ def rescale_noise_cfg(
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
 
+class GuidedEps:
+    """eps_model(latents, t) -> guided eps, as `make_cfg_eps_model` makes it.
+
+    `context` holds the UNet's context: [null; cond] (2B) under guidance,
+    else the prompts' (B); `added` SDXL's added condition the same way
+    (None without it). `apply` runs the call on conditions given in their
+    place, laid out as these (a CUDA graph's static buffers,
+    `diffusion/pass1_graph.py`)."""
+
+    def __init__(self, unet_apply: Callable, context: torch.Tensor,
+                 added: Optional[Dict[str, torch.Tensor]], guided: bool,
+                 guidance_scale: float, guidance_rescale: float):
+        self.unet_apply = unet_apply
+        self.context, self.added = context, added
+        self.guided = guided
+        self.guidance_scale, self.guidance_rescale = guidance_scale, guidance_rescale
+
+    def __call__(self, latents: torch.Tensor, t) -> torch.Tensor:
+        return self.apply(latents, t, self.context, self.added)
+
+    def apply(self, latents: torch.Tensor, t, context: torch.Tensor,
+              added: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+        extra = () if added is None else (added,)
+        if not self.guided:
+            return self.unet_apply(latents, t, context, *extra)
+        B = latents.shape[0]
+        eps2 = self.unet_apply(torch.cat([latents, latents], dim=0), t, context, *extra)
+        eps_uncond, eps_text = eps2[:B], eps2[B:]
+        eps = eps_uncond + self.guidance_scale * (eps_text - eps_uncond)
+        if self.guidance_rescale > 0.0:
+            eps = rescale_noise_cfg(eps, eps_text, self.guidance_rescale)
+        return eps
+
+
 def make_cfg_eps_model(
     unet_apply: Callable,
     context: torch.Tensor,
@@ -34,7 +68,7 @@ def make_cfg_eps_model(
     guidance_rescale: float = 0.0,
     added_cond: Optional[Dict[str, torch.Tensor]] = None,
     null_added_cond: Optional[Dict[str, torch.Tensor]] = None,
-) -> Callable:
+) -> GuidedEps:
     """Returns eps_model(latents, t) -> guided eps.
 
     `unet_apply(latents, t, context)` -> eps, or with `added_cond` (SDXL)
@@ -42,24 +76,9 @@ def make_cfg_eps_model(
     `guidance_scale <= 1` turns guidance off. `null_added_cond` defaults
     to `added_cond`, as in JAX."""
     do_cfg = null_context is not None and guidance_scale > 1.0
-    ctx2 = torch.cat([null_context, context], dim=0) if do_cfg else None
-    extra, extra2 = (), ()
-    if added_cond is not None:
-        extra = (added_cond,)
-        if do_cfg:
-            nac = added_cond if null_added_cond is None else null_added_cond
-            extra2 = ({k: torch.cat([nac[k], added_cond[k]], dim=0)
-                       for k in added_cond},)
-
-    def eps_model(latents: torch.Tensor, t) -> torch.Tensor:
-        if not do_cfg:
-            return unet_apply(latents, t, context, *extra)
-        B = latents.shape[0]
-        eps2 = unet_apply(torch.cat([latents, latents], dim=0), t, ctx2, *extra2)
-        eps_uncond, eps_text = eps2[:B], eps2[B:]
-        eps = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-        if guidance_rescale > 0.0:
-            eps = rescale_noise_cfg(eps, eps_text, guidance_rescale)
-        return eps
-
-    return eps_model
+    added = added_cond
+    if added_cond is not None and do_cfg:
+        nac = added_cond if null_added_cond is None else null_added_cond
+        added = {k: torch.cat([nac[k], added_cond[k]], dim=0) for k in added_cond}
+    ctx = torch.cat([null_context, context], dim=0) if do_cfg else context
+    return GuidedEps(unet_apply, ctx, added, do_cfg, guidance_scale, guidance_rescale)

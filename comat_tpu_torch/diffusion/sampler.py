@@ -58,7 +58,12 @@ def sample_inference(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run all S steps without gradients.
 
-    `eps_model(x, t)` returns the guided eps. Each step's noise is
+    `eps_model(x, t)` returns the guided eps, `t` step i's timestep as a
+    0-dim int64 tensor on the latents' device: the S timesteps are
+    uploaded once (the sync "sampler.timesteps"), and no call waits on an
+    upload of its own. The eps it returns may be a buffer that the next
+    call overwrites (a CUDA graph's output, `diffusion/pass1_graph.py`):
+    each is copied into the table at once. Each step's noise is
     `step_noise[i]` when given, else a standard normal draw from
     `generator`. Returns (final latents, eps table (S, B, h, w, 4),
     trajectory of step inputs (S, B, h, w, 4)). Each guided call is a span
@@ -70,11 +75,18 @@ def sample_inference(
             f"step_noise has {step_noise.shape[0]} steps, the sampler {S}"
         )
     x = latents0
-    eps_table, traj = [], []
+    with trace.sync("sampler.timesteps"):
+        timesteps = torch.tensor(coeffs.timesteps, dtype=torch.long, device=x.device)
+    traj = x.new_empty((S, *x.shape))
+    eps_table = None
     for i in range(S):
         with trace.span("unet"):
-            eps = eps_model(x, int(coeffs.timesteps[i]))
+            eps = eps_model(x, timesteps[i])
             trace.mark("unet>")
+        if eps_table is None:
+            eps_table = eps.new_empty((S, *eps.shape))
+        eps_table[i].copy_(eps)
+        traj[i].copy_(x)
         if step_noise is not None:
             noise = step_noise[i].to(device=x.device, dtype=torch.float32)
         else:
@@ -82,10 +94,8 @@ def sample_inference(
                 x.shape, generator=generator, device=x.device,
                 dtype=torch.float32,
             )
-        traj.append(x)
-        eps_table.append(eps)
-        x, _ = ddpm_step_from_coeffs(coeffs, i, x, eps, noise)
-    return x, torch.stack(eps_table), torch.stack(traj)
+        x, _ = ddpm_step_from_coeffs(coeffs, i, x, eps_table[i], noise)
+    return x, eps_table, traj
 
 
 class _CachedPrimalEps(torch.autograd.Function):

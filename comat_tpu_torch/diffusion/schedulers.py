@@ -14,7 +14,7 @@ with the arithmetic in fp32.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -181,14 +181,23 @@ def ddpm_step_from_coeffs(
 
 
 def v_to_eps(schedule: DiffusionSchedule, t, sample: torch.Tensor,
-             v: torch.Tensor) -> torch.Tensor:
-    """A v-prediction output as epsilon at timestep t (an int, or one a
-    sample), JAX's `v_to_eps` (--prediction_type v_prediction): eps =
-    a v + s x with a = sqrt(acp_t), s = sqrt(1 - acp_t), in fp32, cast to
-    v's dtype. diffusers' v branch computes x0 = a x - s v, which the eps
-    branch gives exactly from this eps, so every eps-based table applies."""
-    acp = torch.as_tensor(schedule.alphas_cumprod, device=sample.device)[
-        torch.as_tensor(t, device=sample.device).long()]
+             v: torch.Tensor, acp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A v-prediction output as epsilon at timestep t (an int, or a tensor
+    of one or one a sample), JAX's `v_to_eps` (--prediction_type
+    v_prediction): eps = a v + s x with a = sqrt(acp_t), s = sqrt(1 -
+    acp_t), in fp32, cast to v's dtype. diffusers' v branch computes x0 =
+    a x - s v, which the eps branch gives exactly from this eps, so every
+    eps-based table applies. `acp`: the schedule's `alphas_cumprod` already
+    on the sample's device, read there without an upload (a timestep
+    tensor on that device included), so that the call can be captured in
+    a CUDA graph; uploaded here when None."""
+    if acp is None:
+        acp = torch.as_tensor(schedule.alphas_cumprod, device=sample.device)
+    if isinstance(t, (int, np.integer)):
+        acp = acp[int(t)]
+    else:
+        # take, not acp[t]: a 0-dim index tensor would be read on the host
+        acp = torch.take(acp, torch.as_tensor(t, device=acp.device).long())
     while acp.dim() < sample.dim():
         acp = acp[..., None]
     out = torch.sqrt(acp) * v.float() + torch.sqrt(1.0 - acp) * sample.float()

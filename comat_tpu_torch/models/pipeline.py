@@ -27,7 +27,10 @@ are JAX's memory-tight options (--gradient_checkpointing);
 `forward(pass1_int8=)` / `presample(pass1_int8=)` / `generate(int8=)` run
 the no-grad sampling in W8A8 (--pass1_int8, models/quant.py), and
 `cfg.prediction_type="v_prediction"` converts every UNet output the
-samplers and the replay read from v to eps (JAX's `unet_apply`).
+samplers and the replay read from v to eps (JAX's `unet_apply`). On a
+card, pass 1's guided call (`forward`, `presample`, `generate`) replays
+the pipeline's one CUDA graph where its input allows
+(`diffusion/pass1_graph.py`, `DiffusionPipeline.pass1_graph`).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 from comat_tpu_torch import trace
 from comat_tpu_torch.config import CLIPTextConfig, UNetConfig, VAEConfig
 from comat_tpu_torch.diffusion.guidance import make_cfg_eps_model
+from comat_tpu_torch.diffusion.pass1_graph import GraphedEps, Pass1Graph
 from comat_tpu_torch.diffusion.sampler import (
     SampleResult,
     prepare_latents,
@@ -224,6 +228,9 @@ class DiffusionPipeline:
         self.text2 = None if cfg.text2 is None else _build(
             lambda: CLIPTextEncoder(cfg.text2, lora_rank=cfg.text_lora_rank), self.device)
         self.schedule: DiffusionSchedule = make_schedule()
+        self._acp: Dict[torch.device, torch.Tensor] = {}   # alphas_cumprod by device
+        # pass 1's guided call as one CUDA graph (diffusion/pass1_graph.py)
+        self.pass1_graph = Pass1Graph()
         # fp32 masters of bf16 trained tensors by name ("unet.<name>",
         # "text.<name>", "vae.<name>"), set by the train state (`set_masters`)
         self.masters: Dict[str, torch.Tensor] = {}
@@ -357,8 +364,17 @@ class DiffusionPipeline:
         """The UNet's output at (latents, t) as eps: v converted under
         `prediction_type="v_prediction"` (JAX's `unet_apply`), else as is."""
         if self.cfg.prediction_type == "v_prediction":
-            return v_to_eps(self.schedule, t, latents, out)
+            return v_to_eps(self.schedule, t, latents, out,
+                            self._alphas_cumprod(latents.device))
         return out
+
+    def _alphas_cumprod(self, device: torch.device) -> torch.Tensor:
+        """The schedule's `alphas_cumprod` on `device`, uploaded once."""
+        if device not in self._acp:
+            with trace.sync("schedule.alphas_cumprod"):
+                self._acp[device] = torch.as_tensor(self.schedule.alphas_cumprod,
+                                                    device=device)
+        return self._acp[device]
 
     def decode_image(self, latents: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """latents (B, h, w, 4) -> image (B, 8h, 8w, 3) as
@@ -385,12 +401,14 @@ class DiffusionPipeline:
 
     def _pass1_eps_model(self, context, null_context, guidance_scale,
                          guidance_rescale, unet: torch.nn.Module,
-                         added: AddedCond = None, null_added: AddedCond = None):
+                         added: AddedCond = None,
+                         null_added: AddedCond = None) -> GraphedEps:
         """Pass 1's guided eps through `unet`, no gradients (v converted
-        to eps, as `unet_apply` does)."""
+        to eps, as `unet_apply` does), replayed from the pipeline's CUDA
+        graph where the call allows one (`diffusion/pass1_graph.py`)."""
         detach = lambda ac: None if ac is None else {  # noqa: E731
             k: v.detach() for k, v in ac.items()}
-        return make_cfg_eps_model(
+        eager = make_cfg_eps_model(
             lambda lat, t, ctx, *ac: self._as_eps(unet(lat, t, ctx, *ac), t, lat),
             context.detach(),
             null_context.detach() if guidance_scale > 1.0 else None,
@@ -398,6 +416,7 @@ class DiffusionPipeline:
             guidance_rescale,
             detach(added), detach(null_added),
         )
+        return self.pass1_graph.eps_model(eager, unet, self.cfg.prediction_type)
 
     # ---- the CoMat forward ----
     def forward(
@@ -631,6 +650,7 @@ class DiffusionPipeline:
         enc, nenc, added, null_added = self._encode_pair(
             input_ids, null_ids, eos_positions, None, input_ids2, null_ids2)
         B = enc.context.shape[0]
+        own_twin = unet is None and self.unet_inf is None and self.cfg.lora_rank > 0
         unet = unet if unet is not None else self.fused_unet()
         eps_model = self._pass1_eps_model(
             enc.context, nenc.context, guidance_scale, guidance_rescale,
@@ -649,6 +669,8 @@ class DiffusionPipeline:
                     eps_model, coeffs, latents0.to(self.device), generator,
                     step_noise=step_noise,
                 )
+        if own_twin and self.pass1_graph.holds(unet):
+            self.pass1_graph.release()      # nothing else holds this call's twin
         if output_type == "latent":
             return latents
         return self.decode_image(latents).clamp(0.0, 1.0)

@@ -325,16 +325,22 @@ class UNet2DConditionModel(nn.Module):
         remat: rm.Remat = False,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict[str, List[torch.Tensor]]]]:
         """eps (B, h, w, 4); with `capture`, (eps, {key: [probs, ...]}),
+        the keys those of `capture_layers` (every key when it is empty).
+        `timesteps`: an int, or a tensor of one or B timesteps; a tensor
+        already on the sample's device is read there, anything else is
+        uploaded (the sync "unet.timesteps").
         `added_cond` (SDXL, required there): {"text_embeds" (B, D),
         "time_ids" (B, 6)}.
-        the keys those of `capture_layers` (every key when it is empty).
         `remat`: True checkpoints every resnet and transformer block, an
         int R those at spatial resolution >= R; a captured block returns
         its maps through the checkpoint."""
         dt = self.cfg.dtype
         B = sample.shape[0]
-        with trace.sync("unet.timesteps"):
-            t = torch.as_tensor(timesteps, device=sample.device)
+        if isinstance(timesteps, torch.Tensor) and timesteps.device == sample.device:
+            t = timesteps
+        else:
+            with trace.sync("unet.timesteps"):
+                t = torch.as_tensor(timesteps, device=sample.device)
         if t.dim() == 0:
             t = t.expand(B)
         temb = self.time_embedding(

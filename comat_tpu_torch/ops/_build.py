@@ -135,12 +135,17 @@ def build_host(name: str) -> str:
     return path
 
 
+KERNELS: List["CudaKernel"] = []
+
+
 class CudaKernel:
     """One C entry point of one source, loaded at its first launch.
 
-    `launches` counts the launches that this process made through
-    `launch`, and only those; `launches_by_shape` splits the same count
-    by the shape key each launch names."""
+    `launches` counts the runs of the kernel that this process launched
+    through `launch`, a CUDA graph's replays of the launches it recorded
+    included (`diffusion/pass1_graph.py` adds them, and takes a capture's
+    own back out); `launches_by_shape` splits the same count by the shape
+    key each launch names. `KERNELS` lists every kernel made."""
 
     def __init__(self, source: str, symbol: str, argtypes: List):
         self.source = source
@@ -149,6 +154,7 @@ class CudaKernel:
         self.launches = 0
         self.launches_by_shape: collections.Counter = collections.Counter()
         self._fn = None
+        KERNELS.append(self)
 
     def _function(self):
         if self._fn is None:

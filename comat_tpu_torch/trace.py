@@ -20,6 +20,10 @@ The layers below the trainer (the sampler, the pipeline, the segmenter,
 the optimizer) take marks, spans and syncs on the *active* clock through
 this module's `mark`, `span` and `sync`, as
 `torch.profiler.record_function` does, so they need no clock argument.
+A tally (`PhaseClock.tally`, `tally`) counts events of a name on the
+active clock: pass 1's guided calls that replayed a CUDA graph
+("pass1_graph") or ran eagerly ("pass1_eager"), and the graph captures
+("pass1_capture"; `diffusion/pass1_graph.py`).
 `PhaseClock.active()` makes a clock the active one for a block and
 restores the one before it on leaving; with no active clock `mark`,
 `span` and `sync` do nothing. The active clock is one for the process,
@@ -64,7 +68,8 @@ class PhaseClock:
     over the same spans.
 
     `spans` holds the host's spans in the order they began (a span still
-    open is None); `n_syncs` counts the syncs, one a blocking read. `leads_ms(*names)` gives
+    open is None); `n_syncs` counts the syncs, one a blocking read; `tallies`
+    counts the tallied events by name. `leads_ms(*names)` gives
     the lead of each mark of those names once `close()` has run (0 on the
     CPU, where the host's clock is the device's)."""
 
@@ -77,6 +82,7 @@ class PhaseClock:
         self.stamps: List[object] = []      # every mark's stamp, in order
         self.spans: List[Optional[Span]] = []
         self.n_syncs = 0
+        self.tallies: Dict[str, int] = {}
         self.anchor_ns: Optional[int] = None
         self._open: List[int] = []
         self._last = None
@@ -144,6 +150,10 @@ class PhaseClock:
         self.n_syncs += 1
         return self.span(site, kind="sync")
 
+    def tally(self, name: str) -> None:
+        """Count one event `name` in `tallies`."""
+        self.tallies[name] = self.tallies.get(name, 0) + 1
+
     def close(self) -> None:
         """End the step: record a last event, wait for it and read the
         anchor, `time.time_ns()`, within the wait's return latency of that
@@ -198,6 +208,12 @@ def mark(name: str) -> None:
     """`PhaseClock.mark` on the active clock; nothing without one."""
     if _active is not None:
         _active.mark(name)
+
+
+def tally(name: str) -> None:
+    """`PhaseClock.tally` on the active clock; nothing without one."""
+    if _active is not None:
+        _active.tally(name)
 
 
 def span(name: str):

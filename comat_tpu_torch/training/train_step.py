@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from comat_tpu_torch import trace
+from comat_tpu_torch.diffusion import pass1_graph
 from comat_tpu_torch.diffusion.schedulers import inference_timesteps
 from comat_tpu_torch.losses.caption_reward import (
     IGNORE_INDEX,
@@ -570,15 +571,22 @@ def trace_outputs(clock: PhaseClock) -> Dict[str, float]:
     n_syncs, the blocking reads the step passed; lead_pass1_ms and
     lead_pass2_ms, the median lead of PASS1_MARKS and of PASS2_MARKS (0
     where the step made none). A lead near 0 says the device waited on
-    the host there; a longer one, that the host ran ahead."""
+    the host there; a longer one, that the host ran ahead.
+    pass1_graph_share: the share of pass 1's guided calls that replayed a
+    CUDA graph (0 where the step made none); n_pass1_captures: the
+    process's graph captures so far (`diffusion/pass1_graph.py`)."""
     def median(values):
         return statistics.median(values) if values else 0.0
 
+    replays = clock.tallies.get("pass1_graph", 0)
+    calls = replays + clock.tallies.get("pass1_eager", 0)
     return {"h_batch": clock.host_seconds("batch"),
             "h_segment_decode": clock.host_seconds("segment.decode"),
             "n_syncs": float(clock.n_syncs),
             "lead_pass1_ms": median(clock.leads_ms(*PASS1_MARKS)),
-            "lead_pass2_ms": median(clock.leads_ms(*PASS2_MARKS))}
+            "lead_pass2_ms": median(clock.leads_ms(*PASS2_MARKS)),
+            "pass1_graph_share": replays / calls if calls else 0.0,
+            "n_pass1_captures": float(pass1_graph.CAPTURES)}
 
 
 def make_loss_fn(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
@@ -769,7 +777,8 @@ def make_train_step(pipeline: DiffusionPipeline, blip, cfg: TrainConfig,
     losses, forward and backward), s_optimizer, s_d_update (D's loss,
     backward and optimizer), s_step (the clock's first mark to its last);
     and what the clock traced (`trace_outputs`): h_batch,
-    h_segment_decode, n_syncs, lead_pass1_ms, lead_pass2_ms.
+    h_segment_decode, n_syncs, lead_pass1_ms, lead_pass2_ms,
+    pass1_graph_share, n_pass1_captures.
     A batch holding `eps_table` and `latents_traj` (a presample's) skips
     pass 1 and replays from them. `clock`: a PhaseClock to mark the
     step on (one is made without it), for a caller that reads more of

@@ -164,7 +164,7 @@ def tiny_trainer(tmp_path_factory):
 
 
 def test_a_trainer_step_returns_its_traced_keys(tiny_trainer, monkeypatch):
-    """The six keys, finite and not negative; `n_syncs` the named sync
+    """The eight keys, finite and not negative; `n_syncs` the named sync
     sites the unsplit GAN step passed."""
     from comat_tpu_torch.training import trainer as trainer_mod
 
@@ -179,7 +179,7 @@ def test_a_trainer_step_returns_its_traced_keys(tiny_trainer, monkeypatch):
     monkeypatch.setattr(trainer_mod, "PhaseClock", Kept)
     m = trainer.train_one(PROMPTS[:2])
     keys = ("h_batch", "h_segment_decode", "n_syncs", "lead_pass1_ms", "lead_pass2_ms",
-            "h_step")
+            "pass1_graph_share", "n_pass1_captures", "h_step")
     for k in keys:
         assert k in m and math.isfinite(m[k]) and m[k] >= 0.0, k
     (clock,) = clocks
@@ -190,9 +190,13 @@ def test_a_trainer_step_returns_its_traced_keys(tiny_trainer, monkeypatch):
     assert syncs[0] == "draws.tolist"
     assert syncs[syncs.index("close"):] == ["close"] + ["metrics.read"] * 7
     assert syncs.count("clip_norm") == 2            # G's clip, then D's
-    # one timestep upload a UNet call: pass 1's 4, the replay's 2 in the
-    # backward, the GAN's G and D calls
-    assert syncs.count("unet.timesteps") == 4 + 2 + 2
+    # pass 1 uploads its 4 timesteps at once; one upload a UNet call after
+    # it: the replay's 2 in the backward, the GAN's G and D calls
+    assert syncs.count("sampler.timesteps") == 1
+    assert syncs.count("unet.timesteps") == 2 + 2
+    # CPU tensors never take pass 1's CUDA graph
+    assert clock.tallies == {"pass1_eager": 4}
+    assert m["pass1_graph_share"] == 0.0 and m["n_pass1_captures"] == 0.0
     assert {"pipeline.ids", "blip.caption_ids", "gan.gt_latents"} <= set(syncs)
     assert m["h_step"] >= m["h_batch"] > 0.0
     names = {s.name for s in clock.spans}
